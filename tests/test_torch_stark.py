@@ -1,0 +1,118 @@
+"""Single-table STARK proofs of the PyTorch port against the JAX package:
+`proof_to_json` byte-identical for the Fibonacci-with-product AIR of
+tests/test_stark.py, defined over the port's Stark, with and without
+proof of work; each package's verifier accepts the other's proof."""
+
+import pytest
+
+from zk_evm_tpu.challenger import Challenger as JChallenger
+from zk_evm_tpu.field import host
+from zk_evm_tpu.stark import (StarkConfig as JStarkConfig,
+                              FriConfig as JFriConfig,
+                              prove_stark as jprove_stark,
+                              verify_stark as jverify_stark)
+from zk_evm_tpu.stark.serialization import proof_to_json as jproof_to_json
+from zk_evm_tpu_torch import convert
+from zk_evm_tpu_torch.challenger import Challenger
+from zk_evm_tpu_torch.stark import (Stark, StarkConfig, FriConfig,
+                                    prove_stark, verify_stark)
+from zk_evm_tpu_torch.stark.serialization import proof_to_json
+from test_stark import FibStark as JFibStark, fib_trace
+
+
+class FibStark(Stark):
+    """tests/test_stark.py's FibStark over the port's Stark. Columns:
+    x0, x1, prod = x0*x1. transition: x0' = x1, x1' = x0 + x1; every row:
+    prod = x0 * x1; first row: x0 = PI[0], x1 = PI[1]; last row:
+    x1 = PI[2]."""
+    name = "fib"
+    num_columns = 3
+    num_public_inputs = 3
+
+    def eval(self, frame, cc):
+        x0, x1, prod = frame.local
+        n0, n1, _ = frame.next
+        pi = frame.public_inputs
+        cc.constraint(prod - x0 * x1)
+        cc.constraint_transition(n0 - x1)
+        cc.constraint_transition(n1 - (x0 + x1))
+        cc.constraint_first_row(x0 - pi[0])
+        cc.constraint_first_row(x1 - pi[1])
+        cc.constraint_last_row(x1 - pi[2])
+
+
+def _cfgs(pow_bits):
+    kw = dict(rate_bits=1, cap_height=2, proof_of_work_bits=pow_bits,
+              num_query_rounds=2, arity_bits=2, final_poly_bits=2)
+    return (StarkConfig(security_bits=1, fri_config=FriConfig(**kw)),
+            JStarkConfig(security_bits=1, fri_config=JFriConfig(**kw)))
+
+
+@pytest.fixture(scope="module", params=[0, 8], ids=["no_pow", "pow8"])
+def fib_proofs(request):
+    trace, pis = fib_trace(64)
+    cfg, jcfg = _cfgs(request.param)
+    proof = prove_stark(FibStark(), trace, cfg, Challenger(), pis)
+    jproof = jprove_stark(JFibStark(), trace, jcfg, JChallenger(), pis)
+    return proof, jproof, cfg, jcfg, pis
+
+
+def test_fib_proof_json_identical(fib_proofs):
+    proof, jproof, *_ = fib_proofs
+    assert proof_to_json(proof) == jproof_to_json(jproof)
+
+
+def test_fib_port_verifier_accepts(fib_proofs):
+    proof, _, cfg, _, pis = fib_proofs
+    verify_stark(FibStark(), proof, cfg, Challenger(),
+                 expected_public_inputs=pis)
+
+
+def test_fib_jax_verifier_accepts_port_proof(fib_proofs):
+    proof, _, _, jcfg, _ = fib_proofs
+    from zk_evm_tpu.stark.serialization import stark_proof_from_json
+    jverify_stark(JFibStark(), stark_proof_from_json(proof_to_json(proof)),
+                  jcfg, JChallenger())
+
+
+def test_fib_port_verifier_accepts_jax_proof(fib_proofs):
+    _, jproof, cfg, _, _ = fib_proofs
+    verify_stark(FibStark(), convert.proof_from_json(jproof_to_json(jproof)),
+                 cfg, Challenger())
+
+
+def test_fib_rejects_bad_trace():
+    trace, pis = fib_trace(64)
+    trace[2, 10] = (int(trace[2, 10]) + 1) % host.P
+    cfg, _ = _cfgs(0)
+    proof = prove_stark(FibStark(), trace, cfg, Challenger(), pis)
+    with pytest.raises(AssertionError):
+        verify_stark(FibStark(), proof, cfg, Challenger())
+
+
+def test_challenger_carried_across():
+    """A JAX challenger mid-transcript converts to a port challenger that
+    draws the same challenges and grinds the same witness."""
+    from zk_evm_tpu.stark.fri import _grind as jgrind
+    from zk_evm_tpu_torch.stark.fri import _grind
+    jch = JChallenger()
+    jch.observe_elements([1, 2, 3, host.P - 1, 5, 6, 7, 8, 9])
+    jch.get_challenge()
+    jch.observe_elements([11, 12])
+    ch = convert.challenger_from(jch)
+    assert _grind(ch, 6) == jgrind(jch, 6)
+    assert ch.get_n_challenges(5) == jch.get_n_challenges(5)
+    assert ch.compact() == jch.compact()
+
+
+def test_lookups_refused():
+    class WithLookups(FibStark):
+        def lookups(self):
+            return [object()]
+    trace, pis = fib_trace(8)
+    cfg, _ = _cfgs(0)
+    with pytest.raises(NotImplementedError, match="lookups: later slice"):
+        prove_stark(WithLookups(), trace, cfg, Challenger(), pis)
+    with pytest.raises(NotImplementedError, match="lookups: later slice"):
+        prove_stark(FibStark(), trace, cfg, Challenger(), pis,
+                    ctl_groups=[object()])

@@ -1,0 +1,12 @@
+from .config import StarkConfig, FriConfig
+from .poly_batch import PolynomialBatch
+from .stark import Stark, StarkFrame, ConstraintConsumer, StackingConsumer
+from .proof import StarkProof, StarkOpeningSet
+from .prover import prove_stark
+from .verifier import verify_stark
+
+__all__ = [
+    "StarkConfig", "FriConfig", "PolynomialBatch",
+    "Stark", "StarkFrame", "ConstraintConsumer", "StackingConsumer",
+    "StarkProof", "StarkOpeningSet", "prove_stark", "verify_stark",
+]
