@@ -2,15 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA Poseidon kernels from zk_evm_tpu_torch/csrc/,
-holds each against its plain PyTorch version and the python-int host twin,
-commits a 64-poly trace (the commit-throughput shape), proves a 2^12-row
-LogicStark on CUDA and on the CPU and compares the proofs byte for byte,
-then proves and verifies a 2^16-row, 523-column LogicStark at the
-standard config (84 FRI queries, 16-bit proof of work) through the
-kernels. Field arithmetic is exact, so every comparison is bit-for-bit
-equality: the tolerance is 0. Every phase raises on failure. Needs one
-CUDA device; without one it exits non-zero and prints no result.
+Builds the four hand-written CUDA Poseidon kernels from zk_evm_tpu_torch/
+csrc/ (one nvcc per source, started together) and holds each against its
+plain PyTorch version and the python-int host twin. Then it drives three
+paths of the port, each with the kernels' launch counts set to 0 just
+before and read just after:
+
+1. LogicStark: a 2^12-row proof on CUDA equals the CPU proof byte for
+   byte; a 2^16-row, 523-column LogicStark is proved at the standard
+   config (84 FRI queries, 16-bit proof of work) and verified.
+2. The benchmark entry point, `zk_evm_tpu_torch.bench`: `main()` and
+   `compare_poseidon_layouts()`, which run the dense and the planes
+   Poseidon kernels; their JSON lines are printed.
+3. The memory-continuation chain MemBefore -> Memory -> MemAfter under one
+   transcript with logUp lookups and cross-table lookups: at Memory 2^10
+   rows the CUDA `proof_to_json` equals the CPU one; at full width
+   (786,432 preinitialized words, every table 2^20 rows) it is proved at
+   the standard config and verified by the port's `verify_all`.
+
+Field arithmetic is exact, so every comparison is bit-for-bit equality:
+the tolerance is 0. Every phase raises on failure. Needs one CUDA device;
+without one it exits non-zero and prints no result.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's `nvidia-smi` name and power limit, and the result JSON.
@@ -26,15 +38,20 @@ import time
 import numpy as np
 import torch
 
-from zk_evm_tpu_torch import cuda_build
+from zk_evm_tpu_torch import bench, cuda_build
+from zk_evm_tpu_torch.bench import cuda_ms, random_gf
 from zk_evm_tpu_torch.challenger import Challenger
 from zk_evm_tpu_torch.field import GF, host
-from zk_evm_tpu_torch.hash import host_poseidon, poseidon, poseidon_dense
+from zk_evm_tpu_torch.hash import (host_poseidon, poseidon, poseidon_dense,
+                                   poseidon_pallas)
 from zk_evm_tpu_torch.parallel import commit_cap
 from zk_evm_tpu_torch.stark import (PolynomialBatch, StarkConfig,
-                                    prove_stark, verify_stark)
+                                    prove_all, prove_stark, verify_all,
+                                    verify_stark)
 from zk_evm_tpu_torch.stark.serialization import proof_to_json
-from zk_evm_tpu_torch.tables import logic
+from zk_evm_tpu_torch.tables import all_stark, logic, memory
+from zk_evm_tpu_torch.tables.memory_chain import (chain_traces,
+                                                  preinitialized_words)
 from zk_evm_tpu_torch.timing import TimingTree, timed
 
 P = host.P
@@ -48,12 +65,41 @@ COMMIT_CHECK_LOG_ROWS = 12
 COMMIT_LOG_ROWS = 15                        # the commit-throughput shape
 LOGIC_CHECK_LOG_ROWS = 12
 LOGIC_LOG_ROWS = 16
+CHAIN_CHECK_WORDS = 700                     # Memory 2^10 rows
+CHAIN_WORDS = 3 << 18                       # every chain table 2^20 rows
+CHAIN_LOG_ROWS = 20
+# leaf shapes (n_cols, n_rows) of the main paths: the commit benchmark's
+# 2^16-row LDE, the Logic trace's and the Memory trace's LDEs, and the
+# planes sponge's shape in compare_poseidon_layouts
+LEAF_SHAPES = ((COMMIT_POLYS, 2 << COMMIT_LOG_ROWS),
+               (logic.NUM_COLUMNS, 2 << LOGIC_LOG_ROWS),
+               (memory.NUM_COLUMNS, 2 << CHAIN_LOG_ROWS),
+               (64, 1 << 14))
 BOUNDARY = (0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63)
-KERNEL_SOURCE = "zk_evm_tpu_torch/csrc/poseidon.cu"
-REPLACES = {
-    "poseidon_permute": "zk_evm_tpu/hash/poseidon_dense.py:143",
-    "poseidon_sponge": "zk_evm_tpu/hash/poseidon_dense.py:203",
+KERNELS = {
+    # name: (source, replaced TPU kernel, wrapper, launch-count key)
+    "poseidon_permute": ("zk_evm_tpu_torch/csrc/poseidon.cu",
+                         "zk_evm_tpu/hash/poseidon_dense.py:143",
+                         poseidon_dense.permute_dense, "permute"),
+    "poseidon_sponge": ("zk_evm_tpu_torch/csrc/poseidon.cu",
+                        "zk_evm_tpu/hash/poseidon_dense.py:203",
+                        poseidon_dense.sponge_dense, "sponge"),
+    "poseidon_pallas_permute": ("zk_evm_tpu_torch/csrc/poseidon_pallas.cu",
+                                "zk_evm_tpu/hash/poseidon_pallas.py:182",
+                                poseidon_pallas.permute_pallas, "permute"),
+    "poseidon_pallas_sponge": ("zk_evm_tpu_torch/csrc/poseidon_pallas.cu",
+                               "zk_evm_tpu/hash/poseidon_pallas.py:250",
+                               poseidon_pallas.sponge_pallas, "sponge"),
 }
+PERMUTES = ("poseidon_permute", "poseidon_pallas_permute")
+SPONGES = ("poseidon_sponge", "poseidon_pallas_sponge")
+# Lower bound on the 32-bit integer multiply-adds of one permutation: 118
+# S-boxes (8 full rounds x 12 + 22 partial) of 4 Goldilocks products, each
+# product 4 32x32-bit partial products; 30 MDS layers of 12 x 12
+# small-constant products of both 32-bit halves of each word.
+IMAD_PER_PERMUTATION = 118 * 4 * 4 + 30 * 12 * 12 * 2
+IMAD_PER_SM_CLOCK = 64                      # Hopper's 32-bit IMAD issue rate
+HBM_BYTES_S = 3.35e12                       # H100 SXM data sheet
 
 
 def log(msg: str) -> None:
@@ -80,24 +126,6 @@ def max_abs_err(got: GF, want: GF) -> int:
     return max(abs(int(a) - int(b)) for a, b in zip(g[bad], w[bad]))
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call, by CUDA events, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def random_gf(rng, shape, dev) -> GF:
-    return GF.from_u64(rng.integers(0, P, size=shape, dtype=np.uint64), dev)
-
-
 def phase_environment() -> str:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
@@ -117,59 +145,87 @@ def phase_environment() -> str:
     return smi
 
 
+def sm_clock_mhz() -> float:
+    """The SM clock `nvidia-smi` reports as the card's maximum."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def phase_build() -> None:
-    so = cuda_build.library_path("poseidon")
-    how = "reused" if so.exists() else "built with nvcc"
+    names = ("poseidon", "poseidon_pallas")
+    how = {n: "reused" if cuda_build.library_path(n).exists()
+           else "built with nvcc" for n in names}
     t0 = time.perf_counter()
-    cuda_build.load("poseidon")
-    log(f"build: csrc/poseidon.cu {how} and loaded in "
-        f"{time.perf_counter() - t0:.2f} s ({so.name})")
+    cuda_build.build_all(names)
+    for n in names:
+        cuda_build.load(n)
+    log(f"build: {', '.join(f'csrc/{n}.cu {how[n]}' for n in names)}; "
+        f"loaded in {time.perf_counter() - t0:.2f} s")
 
 
-def phase_permute(rng, dev) -> int:
-    err = 0
+def zero_counts() -> None:
+    for counts in (poseidon_dense.LAUNCHES, poseidon_pallas.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    return {name: (poseidon_pallas if "pallas" in name
+                   else poseidon_dense).LAUNCHES[key]
+            for name, (_, _, _, key) in KERNELS.items()}
+
+
+def phase_permute(rng, dev) -> dict:
+    err = dict.fromkeys(PERMUTES, 0)
     for batch in PERMUTE_BATCHES:
         states = rng.integers(0, P, size=(batch, 12), dtype=np.uint64)
         n_b = min(batch, 64)
         states[:n_b] = np.array(BOUNDARY, dtype=np.uint64)[
             rng.integers(0, len(BOUNDARY), size=(n_b, 12))]
         x = GF.from_u64(states, dev)
-        got = poseidon_dense.permute_dense(x)
         want = poseidon.permute_plain(x)
-        err = max(err, max_abs_err(got, want))
-        out = got.to_u64()
-        for r in range(min(batch, 4)):
-            twin = host_poseidon.permute_py([int(v) for v in states[r]])
-            if [int(v) for v in out[r]] != twin:
-                raise AssertionError(f"permute row {r} != host twin")
-        if err:
-            raise AssertionError(f"permute kernel != plain at B={batch}")
-    log(f"permute: kernel == plain == host twin (exact) at B = "
-        f"{PERMUTE_BATCHES}")
+        twins = [host_poseidon.permute_py([int(v) for v in states[r]])
+                 for r in range(min(batch, 4))]
+        for name in PERMUTES:
+            got = KERNELS[name][2](x)
+            err[name] = max(err[name], max_abs_err(got, want))
+            if err[name]:
+                raise AssertionError(f"{name} kernel != plain at B={batch}")
+            out = got.to_u64()
+            for r, twin in enumerate(twins):
+                if [int(v) for v in out[r]] != twin:
+                    raise AssertionError(f"{name} row {r} != host twin")
+    log(f"permute: dense and planes kernels == plain == host twin (exact) "
+        f"at B = {PERMUTE_BATCHES}")
     return err
 
 
-def phase_sponge(rng, dev) -> int:
-    err = 0
+def phase_sponge(rng, dev) -> dict:
+    err = dict.fromkeys(SPONGES, 0)
     for n_cols in SPONGE_COLS:
         for n_rows in SPONGE_ROWS:
             m = rng.integers(0, P, size=(n_cols, n_rows), dtype=np.uint64)
             mt = GF.from_u64(m, dev)
-            got = poseidon_dense.sponge_dense(mt)
             want = poseidon.hash_rows_plain(mt.T)
-            err = max(err, max_abs_err(got, want))
-            if err:
-                raise AssertionError(
-                    f"sponge kernel != plain at {n_cols}x{n_rows}")
             twin = host_poseidon.hash_or_noop([int(v) for v in m[:, 0]])
-            if [int(v) for v in got.to_u64()[0]] != twin:
-                raise AssertionError(f"sponge {n_cols} cols != host twin")
-    log(f"sponge: kernel == plain == host twin (exact) at n_cols "
-        f"{SPONGE_COLS}, n_rows {SPONGE_ROWS}")
+            for name in SPONGES:
+                got = KERNELS[name][2](mt)
+                err[name] = max(err[name], max_abs_err(got, want))
+                if err[name]:
+                    raise AssertionError(
+                        f"{name} kernel != plain at {n_cols}x{n_rows}")
+                if [int(v) for v in got.to_u64()[0]] != twin:
+                    raise AssertionError(
+                        f"{name} {n_cols} cols != host twin")
+    log(f"sponge: dense and planes kernels == plain == host twin (exact) at "
+        f"n_cols {SPONGE_COLS}, n_rows {SPONGE_ROWS}")
     return err
 
 
-def phase_commit(rng, dev, smi: str) -> dict:
+def phase_commit(rng, dev, smi: str) -> None:
     polys = COMMIT_POLYS
     small = rng.integers(0, P, size=(polys, 1 << COMMIT_CHECK_LOG_ROWS),
                          dtype=np.uint64)
@@ -179,7 +235,6 @@ def phase_commit(rng, dev, smi: str) -> dict:
         raise AssertionError("commit_cap on CUDA != plain commit_cap on CPU")
     log(f"commit_cap {polys} x 2^{COMMIT_CHECK_LOG_ROWS}: CUDA cap == CPU "
         f"plain cap")
-
     n = 1 << COMMIT_LOG_ROWS
     values = random_gf(rng, (polys, n), dev)
     ms = cuda_ms(lambda: commit_cap(values, cap_height=4), reps=5)
@@ -187,34 +242,65 @@ def phase_commit(rng, dev, smi: str) -> dict:
     log(f"commit_cap {polys} x 2^{COMMIT_LOG_ROWS} (rate 1, cap 4): "
         f"{ms:.3f} ms, {rate:.2f} Melem/s [{smi}]")
 
-    # each kernel beside its plain version, at the main path's shapes:
-    # the commit's leaves (its LDE, 2n rows) and the PoW grind batch
-    lde_t = random_gf(rng, (polys, 2 * n), dev)
-    sp_ms = cuda_ms(lambda: poseidon_dense.sponge_dense(lde_t), reps=10)
-    sp_plain = cuda_ms(lambda: poseidon.hash_rows_plain(lde_t.T), reps=1)
-    batch = PERMUTE_BATCHES[-1]
-    states = random_gf(rng, (batch, 12), dev)
-    pm_ms = cuda_ms(lambda: poseidon_dense.permute_dense(states), reps=10)
-    pm_plain = cuda_ms(lambda: poseidon.permute_plain(states), reps=1)
-    log(f"sponge {polys} cols x {2 * n} rows: kernel {sp_ms:.3f} ms, plain "
-        f"{sp_plain:.3f} ms [{smi}]")
-    log(f"permute {batch} states: kernel {pm_ms:.3f} ms "
-        f"({batch / pm_ms / 1e3:.2f} Mperm/s), plain {pm_plain:.3f} ms "
-        f"[{smi}]")
-    # the leaves of the 2^16-row Logic trace: 523 columns of its 2^17-row
-    # LDE, compared at that very shape as well as timed
-    wide = random_gf(rng, (logic.NUM_COLUMNS, 2 << LOGIC_LOG_ROWS), dev)
-    if max_abs_err(poseidon_dense.sponge_dense(wide),
-                   poseidon.hash_rows_plain(wide.T)):
-        raise AssertionError("sponge kernel != plain at the Logic leaves")
-    wide_ms = cuda_ms(lambda: poseidon_dense.sponge_dense(wide), reps=3)
-    wide_plain = cuda_ms(lambda: poseidon.hash_rows_plain(wide.T), reps=1)
-    log(f"sponge {logic.NUM_COLUMNS} cols x {2 << LOGIC_LOG_ROWS} rows "
-        f"(the Logic trace leaves): kernel == plain; kernel {wide_ms:.3f} "
-        f"ms, plain {wide_plain:.3f} ms [{smi}]")
-    return {"commit_ms": ms, "commit_melem_s": rate,
-            "poseidon_sponge": (sp_ms, sp_plain),
-            "poseidon_permute": (pm_ms, pm_plain)}
+
+def once_ms(fn):
+    """The result of one call and its milliseconds, by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bound(name: str, shape: tuple, clock_mhz: float, sms: int):
+    """(bound_ms, bound_by): the least time the card could take for the
+    call, the larger of its integer operations over the IMAD issue rate
+    and its bytes (inputs read once, outputs written once) over HBM."""
+    if name in PERMUTES:
+        (batch,) = shape
+        perms, nbytes = batch, batch * 12 * 8 * 2
+    else:
+        n_cols, n_rows = shape
+        perms = n_rows * -(-n_cols // 8)
+        nbytes = (n_cols + 4) * n_rows * 8
+    ops_ms = perms * IMAD_PER_PERMUTATION \
+        / (sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+def phase_kernel_times(rng, dev, smi: str, clock_mhz: float) -> dict:
+    """Each kernel held against the plain version and timed at the shapes
+    its main path gives it. Returns {(name, shape): (ms, plain_ms,
+    bound_ms, bound_by)}."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    log(f"bounds: {IMAD_PER_PERMUTATION} IMADs a permutation over {sms} SMs "
+        f"x {IMAD_PER_SM_CLOCK} a clock x {clock_mhz:.0f} MHz; bytes over "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s")
+    work = [((PERMUTE_BATCHES[-1],), PERMUTES)] \
+        + [(shape, SPONGES) for shape in LEAF_SHAPES]
+    for shape, names in work:
+        x = random_gf(rng, shape if names is SPONGES else shape + (12,), dev)
+        if names is SPONGES:
+            want, plain_ms = once_ms(lambda: poseidon.hash_rows_plain(x.T))
+        else:
+            want, plain_ms = once_ms(lambda: poseidon.permute_plain(x))
+        for name in names:
+            fn = KERNELS[name][2]
+            if max_abs_err(fn(x), want):
+                raise AssertionError(f"{name} kernel != plain at {shape}")
+            ms = cuda_ms(lambda: fn(x), reps=10 if shape[0] < 100 else 3)
+            bound_ms, bound_by = bound(name, shape, clock_mhz, sms)
+            rows[(name, shape)] = (ms, plain_ms, bound_ms, bound_by)
+            log(f"{name} {shape}: kernel == plain; kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
+                f"[{smi}]")
+    return rows
 
 
 def logic_trace(rng, log_rows: int) -> np.ndarray:
@@ -234,7 +320,8 @@ def phase_logic_small(rng, dev) -> None:
     on_gpu = proof_to_json(prove_stark(stark, trace, cfg, Challenger(),
                                        device=dev))
     t1 = time.perf_counter()
-    on_cpu = proof_to_json(prove_stark(stark, trace, cfg, Challenger()))
+    on_cpu = proof_to_json(prove_stark(stark, trace, cfg, Challenger(),
+                                       device="cpu"))
     t2 = time.perf_counter()
     if on_gpu != on_cpu:
         raise AssertionError("LogicStark: CUDA proof != CPU proof")
@@ -243,13 +330,22 @@ def phase_logic_small(rng, dev) -> None:
         f"({len(on_gpu)} bytes; CUDA {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s)")
 
 
+def print_tree(tree: TimingTree) -> None:
+    def walk(node, depth):
+        log(f"  {'  ' * depth}{node.elapsed:9.3f} s  {node.name}")
+        for child in node.children:
+            walk(child, depth + 1)
+    for node in tree.root.children:
+        walk(node, 0)
+
+
 def phase_logic_full(rng, dev, smi: str) -> dict:
     trace = logic_trace(rng, LOGIC_LOG_ROWS)
     cfg = StarkConfig.standard_fast_config()
     stark = logic.LogicStark()
     torch.cuda.synchronize()
-    for k in poseidon_dense.LAUNCHES:
-        poseidon_dense.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     tree = TimingTree(f"prove LogicStark 2^{LOGIC_LOG_ROWS}")
     with tree:
         with timed("commit trace"):
@@ -258,17 +354,16 @@ def phase_logic_full(rng, dev, smi: str) -> dict:
                 cap_height=cfg.cap_height, hasher=cfg.hasher)
         proof = prove_stark(stark, trace, cfg, Challenger(),
                             trace_batch=batch)
-    launches = dict(poseidon_dense.LAUNCHES)
+    launches = read_counts()
     if batch.lde.device.type != "cuda":
         raise AssertionError(f"trace LDE on {batch.lde.device}, not cuda")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} kernel never launched in the prove")
+    for name in ("poseidon_permute", "poseidon_sponge"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched in the prove")
     log(f"LogicStark 2^{LOGIC_LOG_ROWS} standard config, "
         f"{len(proof.fri_proof.query_rounds)} queries, pow witness "
         f"{proof.fri_proof.pow_witness} [{smi}]:")
-    for node in tree.root.children:
-        log(f"  {node.elapsed:9.3f} s  {node.name}")
+    print_tree(tree)
     log(f"  {tree.root.elapsed:9.3f} s  total; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     t0 = time.perf_counter()
@@ -278,25 +373,120 @@ def phase_logic_full(rng, dev, smi: str) -> dict:
     return launches
 
 
+def phase_bench(smi: str) -> dict:
+    """The benchmark entry point; it prints its own JSON lines."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    bench.main()
+    bench.compare_poseidon_layouts()
+    launches = read_counts()
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} kernel never launched in the "
+                                 f"benchmark")
+    log(f"bench: main() and compare_poseidon_layouts() in "
+        f"{time.perf_counter() - t0:.2f} s [{smi}]; launches {launches}")
+    return launches
+
+
+def chain_inputs(n_words: int):
+    traces = chain_traces(preinitialized_words(n_words, seed=SEED))
+    optional = tuple(i for i, t in enumerate(traces) if t is None)
+    return (traces, all_stark.all_starks(),
+            all_stark.all_cross_table_lookups(), optional)
+
+
+def phase_chain_small(dev) -> None:
+    traces, starks, ctls, _ = chain_inputs(CHAIN_CHECK_WORDS)
+    rows = traces[all_stark.Table.Memory].shape[1]
+    cfg = StarkConfig.test_config()
+    t0 = time.perf_counter()
+    on_gpu = proof_to_json(prove_all(starks, traces, ctls, cfg, device=dev))
+    t1 = time.perf_counter()
+    on_cpu = proof_to_json(prove_all(starks, traces, ctls, cfg,
+                                     device="cpu"))
+    t2 = time.perf_counter()
+    if on_gpu != on_cpu:
+        raise AssertionError("memory chain: CUDA proof != CPU proof")
+    log(f"memory chain, Memory {rows} rows, test config: CUDA proof == CPU "
+        f"proof ({len(on_gpu)} bytes; CUDA {t1 - t0:.2f} s, CPU "
+        f"{t2 - t1:.2f} s)")
+
+
+def phase_chain_full(dev, smi: str) -> dict:
+    t0 = time.perf_counter()
+    traces, starks, ctls, optional = chain_inputs(CHAIN_WORDS)
+    in_use = {name: traces[getattr(all_stark.Table, name)].shape
+              for name in ("Memory", "MemBefore", "MemAfter")}
+    log(f"memory chain traces {in_use} from {CHAIN_WORDS} words in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    for shape in in_use.values():
+        if shape[1] != 1 << CHAIN_LOG_ROWS:
+            raise AssertionError(f"chain trace {shape}, not 2^"
+                                 f"{CHAIN_LOG_ROWS} rows")
+    cfg = StarkConfig.standard_fast_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    tree = TimingTree("prove memory chain")
+    with tree:
+        proof = prove_all(starks, traces, ctls, cfg, device=dev)
+    launches = read_counts()
+    for name in ("poseidon_permute", "poseidon_sponge"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched in the "
+                                 f"memory chain")
+    log(f"memory chain 2^{CHAIN_LOG_ROWS} standard config "
+        f"(tables in order Memory, MemBefore, MemAfter) [{smi}]:")
+    print_tree(tree)
+    log(f"  {tree.root.elapsed:9.3f} s  total; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    t0 = time.perf_counter()
+    verify_all(starks, proof, ctls, cfg, optional_tables=optional)
+    log(f"memory chain verified by the port's verify_all in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+# the shape each kernel's row of the kernels line reports: the PoW grind
+# batch, the Memory trace's leaves, the commit benchmark's leaves
+ROW_SHAPES = {
+    "poseidon_permute": (PERMUTE_BATCHES[-1],),
+    "poseidon_sponge": (memory.NUM_COLUMNS, 2 << CHAIN_LOG_ROWS),
+    "poseidon_pallas_permute": (PERMUTE_BATCHES[-1],),
+    "poseidon_pallas_sponge": (COMMIT_POLYS, 2 << COMMIT_LOG_ROWS),
+}
+
+
 def main() -> None:
     smi = phase_environment()
+    clock = sm_clock_mhz()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     rng = np.random.default_rng(SEED)
     phase_build()
-    errs = {"poseidon_permute": phase_permute(rng, dev),
-            "poseidon_sponge": phase_sponge(rng, dev)}
-    times = phase_commit(rng, dev, smi)
+    errs = {**phase_permute(rng, dev), **phase_sponge(rng, dev)}
+    phase_commit(rng, dev, smi)
+    times = phase_kernel_times(rng, dev, smi, clock)
     phase_logic_small(rng, dev)
-    launches = phase_logic_full(rng, dev, smi)
+    phase_logic_full(rng, dev, smi)
+    bench_launches = phase_bench(smi)
+    phase_chain_small(dev)
+    chain_launches = phase_chain_full(dev, smi)
     kernels = []
-    for name, count in (("poseidon_permute", launches["permute"]),
-                        ("poseidon_sponge", launches["sponge"])):
-        ms, plain_ms = times[name]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-                        "launches": count, "max_abs_err": errs[name],
-                        "ms": ms, "plain_ms": plain_ms})
+    for name, (source, replaces, _, _) in KERNELS.items():
+        shape = ROW_SHAPES[name]
+        ms, plain_ms, bound_ms, bound_by = times[(name, shape)]
+        launches = bench_launches[name] if "pallas" in name \
+            else chain_launches[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": errs[name], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None,
+                        "shape": list(shape)})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ CPU_CALLS = """
 import json
 import numpy as np
 from zk_evm_tpu_torch.field import GF
-from zk_evm_tpu_torch.hash import poseidon, poseidon_dense
+from zk_evm_tpu_torch.hash import poseidon, poseidon_dense, poseidon_pallas
 from zk_evm_tpu_torch.parallel import commit_cap
 rng = np.random.default_rng(5)
 m = GF.from_u64(rng.integers(0, 2**63, size=(16, 13), dtype=np.uint64))
@@ -40,7 +40,10 @@ poseidon.permute(GF.from_u64(rng.integers(0, 2**63, size=(3, 12),
                                           dtype=np.uint64)))
 commit_cap(GF.from_u64(rng.integers(0, 2**63, size=(9, 16),
                                     dtype=np.uint64)), cap_height=1)
-print(json.dumps(poseidon_dense.LAUNCHES))
+poseidon_pallas.permute_pallas(GF.from_u64(
+    rng.integers(0, 2**63, size=(3, 12), dtype=np.uint64)))
+poseidon_pallas.sponge_pallas(m)
+print(json.dumps([poseidon_dense.LAUNCHES, poseidon_pallas.LAUNCHES]))
 """
 
 
@@ -56,27 +59,39 @@ def test_port_imports_no_jax():
     out = run_fresh(IMPORT_ALL)
     # every subpackage the slice ports is walked, down to the kernels
     for name in ("zk_evm_tpu_torch.hash.poseidon_dense",
+                 "zk_evm_tpu_torch.hash.poseidon_pallas",
                  "zk_evm_tpu_torch.stark.prover",
+                 "zk_evm_tpu_torch.stark.lookup",
+                 "zk_evm_tpu_torch.stark.multi",
                  "zk_evm_tpu_torch.tables.logic",
-                 "zk_evm_tpu_torch.parallel.sharded"):
+                 "zk_evm_tpu_torch.tables.all_stark",
+                 "zk_evm_tpu_torch.tables.memory",
+                 "zk_evm_tpu_torch.tables.memory_chain",
+                 "zk_evm_tpu_torch.tables.cpu",
+                 "zk_evm_tpu_torch.tables.keccak_sponge",
+                 "zk_evm_tpu_torch.parallel.sharded",
+                 "zk_evm_tpu_torch.bench"):
         assert name in out["modules"]
     assert out["loaded"] == []
 
 
 def test_cpu_calls_launch_no_kernel():
-    assert run_fresh(CPU_CALLS) == {"permute": 0, "sponge": 0}
+    assert run_fresh(CPU_CALLS) == [{"permute": 0, "sponge": 0}] * 2
 
 
 # Host modules the port carries as jax-free copies; each is the reference's
 # file byte for byte, so the two cannot drift apart unnoticed. The modules
 # the port had to edit (`hash/host_poseidon.py`, `stark/verifier.py`,
 # `stark/serialization.py`, `tables/logic.py`, `timing.py`) are held to
-# the reference by behaviour in the other test_torch_* files.
+# the reference by behaviour in the other test_torch_* files, and so are
+# the table copies (`tests/test_torch_tables.py`), the lookup module
+# (`tests/test_torch_lookup.py`) and the multi-table prover
+# (`tests/test_torch_multi.py`).
 VERBATIM_COPIES = [
     "field/host.py", "field/np_field.py", "field/hext.py",
     "hash/poseidon_params.py", "challenger/challenger.py",
     "merkle/host.py", "ntt/host.py", "stark/config.py", "stark/proof.py",
-    "stark/domains.py",
+    "stark/domains.py", "tables/cpu_columns.py",
 ]
 
 

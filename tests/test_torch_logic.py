@@ -52,7 +52,8 @@ def jax_proof_json(trace):
 
 @pytest.fixture(scope="module")
 def port_proof(trace):
-    return prove_stark(logic.LogicStark(), trace, CFG, Challenger())
+    return prove_stark(logic.LogicStark(), trace, CFG, Challenger(),
+                       device="cpu")
 
 
 def test_trace_matches_reference(trace):
@@ -80,14 +81,15 @@ def test_port_verifier_accepts(port_proof, jax_proof_json):
 def test_port_verifier_rejects_bad_result(trace):
     bad = trace.copy()
     bad[logic.RESULT, 0] = int(bad[logic.RESULT, 0]) ^ 1
-    proof = prove_stark(logic.LogicStark(), bad, CFG, Challenger())
+    proof = prove_stark(logic.LogicStark(), bad, CFG, Challenger(),
+                        device="cpu")
     with pytest.raises(AssertionError):
         verify_stark(logic.LogicStark(), proof, CFG, Challenger())
 
 
 def test_cpu_prove_launches_no_kernel(trace):
     before = dict(poseidon_dense.LAUNCHES)
-    prove_stark(logic.LogicStark(), trace, CFG, Challenger())
+    prove_stark(logic.LogicStark(), trace, CFG, Challenger(), device="cpu")
     assert poseidon_dense.LAUNCHES == before
 
 

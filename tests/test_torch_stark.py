@@ -4,6 +4,7 @@ tests/test_stark.py, defined over the port's Stark, with and without
 proof of work; each package's verifier accepts the other's proof."""
 
 import pytest
+import torch
 
 from zk_evm_tpu.challenger import Challenger as JChallenger
 from zk_evm_tpu.field import host
@@ -14,9 +15,11 @@ from zk_evm_tpu.stark import (StarkConfig as JStarkConfig,
 from zk_evm_tpu.stark.serialization import proof_to_json as jproof_to_json
 from zk_evm_tpu_torch import convert
 from zk_evm_tpu_torch.challenger import Challenger
-from zk_evm_tpu_torch.stark import (Stark, StarkConfig, FriConfig,
+from zk_evm_tpu_torch.stark import (Stark, StarkConfig, FriConfig, Lookup,
                                     prove_stark, verify_stark)
+from zk_evm_tpu_torch.stark.prover import resolve_device
 from zk_evm_tpu_torch.stark.serialization import proof_to_json
+from test_lookup_ctl import RangeStark as JRangeStark, range_trace
 from test_stark import FibStark as JFibStark, fib_trace
 
 
@@ -52,7 +55,8 @@ def _cfgs(pow_bits):
 def fib_proofs(request):
     trace, pis = fib_trace(64)
     cfg, jcfg = _cfgs(request.param)
-    proof = prove_stark(FibStark(), trace, cfg, Challenger(), pis)
+    proof = prove_stark(FibStark(), trace, cfg, Challenger(), pis,
+                        device="cpu")
     jproof = jprove_stark(JFibStark(), trace, jcfg, JChallenger(), pis)
     return proof, jproof, cfg, jcfg, pis
 
@@ -85,7 +89,8 @@ def test_fib_rejects_bad_trace():
     trace, pis = fib_trace(64)
     trace[2, 10] = (int(trace[2, 10]) + 1) % host.P
     cfg, _ = _cfgs(0)
-    proof = prove_stark(FibStark(), trace, cfg, Challenger(), pis)
+    proof = prove_stark(FibStark(), trace, cfg, Challenger(), pis,
+                        device="cpu")
     with pytest.raises(AssertionError):
         verify_stark(FibStark(), proof, cfg, Challenger())
 
@@ -105,14 +110,72 @@ def test_challenger_carried_across():
     assert ch.compact() == jch.compact()
 
 
+class RangeStark(Stark):
+    """tests/test_lookup_ctl.py's one-lookup RangeStark over the port's
+    Stark: V0, V1 are looked up in the counter T with frequencies F."""
+    name = "range"
+    num_columns = 4
+
+    def eval(self, frame, cc):
+        t = frame.local[2]
+        cc.constraint_first_row(t)
+        cc.constraint_transition(frame.next[2] - t - 1)
+
+    def lookups(self):
+        return [Lookup(looking_columns=(0, 1), table_column=2,
+                       frequencies_column=3)]
+
+
 def test_lookups_refused():
-    class WithLookups(FibStark):
-        def lookups(self):
-            return [object()]
+    """Lookups and CTLs are proved now; a table with preprocessed columns
+    is still refused, and a one-lookup table's CPU proof equals the JAX
+    package's."""
+    class WithPreprocessed(FibStark):
+        num_preprocessed = 1
+    trace, pis = fib_trace(8)
+    cfg, jcfg = _cfgs(0)
+    with pytest.raises(NotImplementedError, match="preprocessed columns"):
+        prove_stark(WithPreprocessed(), trace, cfg, Challenger(), pis,
+                    device="cpu")
+    rtrace = range_trace(32)
+    proof = prove_stark(RangeStark(), rtrace, cfg, Challenger(),
+                        device="cpu")
+    jproof = jprove_stark(JRangeStark(), rtrace, jcfg, JChallenger())
+    assert proof_to_json(proof) == jproof_to_json(jproof)
+
+
+def test_prove_stark_needs_cuda_or_explicit_cpu():
+    """Without `device`, prove_stark runs on CUDA; without a card it
+    raises and never falls back to the CPU."""
     trace, pis = fib_trace(8)
     cfg, _ = _cfgs(0)
-    with pytest.raises(NotImplementedError, match="lookups: later slice"):
-        prove_stark(WithLookups(), trace, cfg, Challenger(), pis)
-    with pytest.raises(NotImplementedError, match="lookups: later slice"):
-        prove_stark(FibStark(), trace, cfg, Challenger(), pis,
-                    ctl_groups=[object()])
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prove_stark(FibStark(), trace, cfg, Challenger(), pis)
+
+
+@pytest.mark.parametrize("degree_bits,rate_bits", [(2, 1), (5, 1), (6, 2),
+                                                   (4, 3)])
+def test_device_selectors_equal_host(degree_bits, rate_bits):
+    """The prover's selector tables, built with tensor ops, equal the host
+    numpy tables of `domains` (and so the JAX package's)."""
+    from zk_evm_tpu_torch.stark import domains
+    from zk_evm_tpu_torch.stark.prover import selector_tables
+    want = domains.selector_tables_bitrev(degree_bits, rate_bits)
+    got = selector_tables(degree_bits, rate_bits, "cpu")
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].to_u64().tolist() == want[k].tolist(), k
+
+
+def test_opening_powers_equal_host():
+    from zk_evm_tpu_torch.stark.poly_batch import ext_powers
+    z = (host.P - 5, 123456789)
+    a, b = ext_powers(z, 45)
+    want, cur = [], (1, 0)
+    for _ in range(45):
+        want.append(cur)
+        cur = host.emul(cur, z)
+    assert list(zip(a.to_u64().tolist(), b.to_u64().tolist())) == want

@@ -1,0 +1,138 @@
+"""Benchmark of the port on one CUDA device: trace-commitment throughput
+(the JAX package's `bench.py` metric) and the two Poseidon layouts.
+
+    python3 -m zk_evm_tpu_torch.bench               # main(): one JSON line
+    python3 -m zk_evm_tpu_torch.bench --layouts [log_b]
+                                  # compare_poseidon_layouts: one JSON line
+
+`main()` times, at `bench.py`'s shapes, `commit_cap` of 64 polys x 2^15
+rows (2x LDE, leaf sponge, tree up to a height-4 cap), `lde_bitrev` at the
+same shape, and the Poseidon permutation of 2^18 states, and prints
+`{"metric": "trace_commit_throughput", "value", "unit", "ntt_gelem_s",
+"poseidon_mperm_s", "platform": "cuda", "device"}`. Throughput is
+elements (polys x rows) or permutations over the mean time of a call.
+
+`compare_poseidon_layouts()` is the twin of the JAX package's
+`scripts/prof_poseidon.py`: it checks that the dense kernels
+(`hash/poseidon_dense.py`) and the planes kernels
+(`hash/poseidon_pallas.py`) give identical results, then times both.
+
+Times come from CUDA events around repeated calls after a warm-up call.
+There is no CPU mode: without a CUDA device both raise.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+from .field import GF, host
+from . import ntt
+from .hash import poseidon, poseidon_dense, poseidon_pallas
+from .parallel import commit_cap
+
+POLYS = 64
+LOG_N = 15          # 2^15 rows -> 2^16-point LDE, 2M committed elements
+LOG_PERM = 18
+ITERS = 10
+SEED = 42
+
+
+def cuda_device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the benchmark needs a CUDA device")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call, by CUDA events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def random_gf(rng, shape, dev) -> GF:
+    return GF.from_u64(rng.integers(0, host.P, size=shape, dtype=np.uint64),
+                       dev)
+
+
+def main() -> dict:
+    dev = cuda_device()
+    rng = np.random.default_rng(SEED)
+    values = random_gf(rng, (POLYS, 1 << LOG_N), dev)
+    elems = POLYS << LOG_N
+    commit_ms = cuda_ms(lambda: commit_cap(values, cap_height=4), ITERS)
+    lde_ms = cuda_ms(lambda: ntt.lde_bitrev(values, rate_bits=1), ITERS)
+    states = random_gf(rng, (1 << LOG_PERM, 12), dev)
+    perm_ms = cuda_ms(lambda: poseidon.permute(states), ITERS)
+    out = {
+        "metric": "trace_commit_throughput",
+        "value": elems / commit_ms / 1e3,
+        "unit": "Melem/s",
+        "ntt_gelem_s": elems / lde_ms / 1e6,
+        "poseidon_mperm_s": (1 << LOG_PERM) / perm_ms / 1e3,
+        "platform": "cuda",
+        "device": torch.cuda.get_device_name(dev),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def compare_poseidon_layouts(log_b: int = 18) -> dict:
+    """Dense vs planes Poseidon kernels on the card: identical digests
+    first (8192 states; a 64-column sponge over 8192 rows), then the
+    permutation at 2^log_b states and the 64-column sponge over
+    max(2^log_b / 16, 2048) rows, each by CUDA events."""
+    dev = cuda_device()
+    rng = np.random.default_rng(0)
+    b = 1 << log_b
+    st = random_gf(rng, (max(b, 8192), 12), dev)
+    head = st[:8192]
+    if not torch.equal(poseidon_pallas.permute_pallas(head).v,
+                       poseidon_dense.permute_dense(head).v):
+        raise AssertionError("permute: planes kernel != dense kernel")
+    n_rows = max(b // 16, 2048)
+    n_cols = 64
+    mat = random_gf(rng, (n_cols, max(n_rows, 8192)), dev)
+    head = mat[:, :8192]
+    if not torch.equal(poseidon_pallas.sponge_pallas(head).v,
+                       poseidon_dense.sponge_dense(head).v):
+        raise AssertionError("sponge: planes kernel != dense kernel")
+    st = st[:b]
+    mat = GF(mat.v[:, :n_rows].contiguous())
+    perms = n_rows * (n_cols // 8)
+    dense_p = cuda_ms(lambda: poseidon_dense.permute_dense(st), ITERS)
+    planes_p = cuda_ms(lambda: poseidon_pallas.permute_pallas(st), ITERS)
+    dense_s = cuda_ms(lambda: poseidon_dense.sponge_dense(mat), ITERS)
+    planes_s = cuda_ms(lambda: poseidon_pallas.sponge_pallas(mat), ITERS)
+    out = {
+        "batch": b, "sponge_cols": n_cols, "sponge_rows": n_rows,
+        "equal": True,
+        "permute_dense_ms": dense_p, "permute_planes_ms": planes_p,
+        "permute_dense_mperm_s": b / dense_p / 1e3,
+        "permute_planes_mperm_s": b / planes_p / 1e3,
+        "sponge_dense_ms": dense_s, "sponge_planes_ms": planes_s,
+        "sponge_dense_mperm_s": perms / dense_s / 1e3,
+        "sponge_planes_mperm_s": perms / planes_s / 1e3,
+        "device": torch.cuda.get_device_name(dev),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--layouts":
+        compare_poseidon_layouts(int(sys.argv[2]) if len(sys.argv) > 2
+                                 else 18)
+    else:
+        main()

@@ -3,8 +3,9 @@
 Each source compiles with nvcc, at first use, into a shared library with a
 plain C interface under `build/kernels/` at the root of the checkout, and
 is loaded with ctypes. The library's file name carries a hash of the
-source and the flags, so an edited `.cu` rebuilds and an unchanged one is
-reused. Nothing here runs at import time.
+source, the shared headers (csrc/*.cuh) and the flags, so an edited
+source rebuilds and an unchanged one is reused. `build_all` starts one
+nvcc per source at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -34,24 +35,53 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    # the source, every shared header and the flags name the library
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{tag[:16]}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc on csrc/<name>.cu; returns (process, tmp, so), or None
+    when the library already exists."""
+    so = library_path(name)
+    if so.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, so
+
+
+def _finish_build(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, so = started
+    _out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{err}")
+    os.replace(tmp, so)
+
+
+def build_all(names) -> None:
+    """Build the named libraries that are missing, all nvcc runs at once."""
+    started = {name: _start_build(name) for name in names}
+    errors = []
+    for name, s in started.items():         # wait for every nvcc
+        try:
+            _finish_build(name, s)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 @lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its library is missing, then load it."""
-    so = library_path(name)
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        src = CSRC / f"{name}.cu"
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on csrc/{name}.cu:\n{proc.stderr}")
-        os.replace(tmp, so)
-    return ctypes.CDLL(str(so))
+    _finish_build(name, _start_build(name))
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,0 +1,127 @@
+"""Wrappers of the planes-layout CUDA Poseidon kernels
+(csrc/poseidon_pallas.cu).
+
+`permute_pallas` replaces the JAX package's `poseidon_pallas._permute_kernel`
+and `sponge_pallas` its `poseidon_pallas._sponge_kernel`; the source file
+says what each kernel carries over from the TPU design (the (12, B)
+structure-of-arrays state and the 16-bit limb-plane MDS) and what bounds
+it on the card.
+
+Each wrapper takes a GF array. On a CPU tensor it runs the plain PyTorch
+version (`poseidon.permute_plain` / `poseidon.hash_rows_plain`, which
+compute the same function); on a CUDA tensor it launches its kernel on the
+current stream or raises — there is no fallback. `LAUNCHES` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..field import GF
+from .. import cuda_build
+from . import poseidon
+from . import poseidon_params as pp
+
+LAUNCHES = {"permute": 0, "sponge": 0}
+
+_c = ctypes.c_void_p
+_i64 = ctypes.c_int64
+
+
+@lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("poseidon_pallas")
+    lib.zk_poseidon_pallas_mds_coef.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.zk_poseidon_pallas_mds_coef.restype = ctypes.c_int
+    lib.zk_poseidon_pallas_set_round_constants.argtypes = [_c]
+    lib.zk_poseidon_pallas_set_round_constants.restype = ctypes.c_int
+    lib.zk_poseidon_pallas_permute.argtypes = [_c, _c, _i64, _i64, _c]
+    lib.zk_poseidon_pallas_permute.restype = ctypes.c_int
+    lib.zk_poseidon_pallas_sponge.argtypes = [_c, _i64, _i64, _i64, _c, _c]
+    lib.zk_poseidon_pallas_sponge.restype = ctypes.c_int
+    # the kernel's MDS is compiled in; it must be the parameter set's
+    mat = poseidon.mds_matrix_np()
+    for r in range(pp.WIDTH):
+        for j in range(pp.WIDTH):
+            if lib.zk_poseidon_pallas_mds_coef(r, j) != mat[r, j]:
+                raise RuntimeError(
+                    "poseidon_pallas.cu MDS differs from the params")
+    return lib
+
+
+@lru_cache(maxsize=None)
+def _ready(device_index: int) -> ctypes.CDLL:
+    """The library with the round constants uploaded to this device."""
+    lib = _library()
+    rcs = np.ascontiguousarray(pp.round_constants_np())
+    with torch.cuda.device(device_index):
+        _check(lib.zk_poseidon_pallas_set_round_constants(rcs.ctypes.data),
+               "uploading round constants")
+    return lib
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"poseidon_pallas kernel {what}: CUDA error {err}")
+
+
+def _cuda_int64(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CPU or CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype != torch.int64:
+        raise TypeError(f"{what}: expected int64, got {x.dtype}")
+
+
+def permute_pallas(state: GF) -> GF:
+    """Poseidon permutation of a (B, 12) GF state, any B. The kernel works
+    on the (12, B) planes: the state goes in transposed and comes back
+    transposed, as the JAX package's `_permute_pallas_jit` does."""
+    x = state.v
+    if x.ndim != 2 or x.shape[1] != pp.WIDTH:
+        raise ValueError(f"permute: expected (B, 12), got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return poseidon.permute_plain(state)
+    _cuda_int64(x, "permute")
+    planes = x.t().contiguous()                 # (12, B)
+    out = torch.empty_like(planes)
+    lib = _ready(x.device.index)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check(lib.zk_poseidon_pallas_permute(
+            planes.data_ptr(), out.data_ptr(), x.shape[0], planes.stride(0),
+            stream), "permute launch")
+    LAUNCHES["permute"] += 1
+    return GF(out.t().contiguous())
+
+
+def sponge_pallas(matrix_t: GF) -> GF:
+    """Digests of the COLUMNS of a (n_cols, n_rows) GF matrix, n_cols > 4,
+    any n_rows: returns (n_rows, 4), equal to
+    poseidon.hash_rows_plain(matrix_t.T). The matrix is read in place when
+    its rows are contiguous (the LDE's layout); the kernel writes (4,
+    n_rows) digest planes, which are transposed on return."""
+    x = matrix_t.v
+    if x.ndim != 2 or x.shape[0] <= 4:
+        raise ValueError(
+            f"sponge: expected (n_cols > 4, n_rows), got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return poseidon.hash_rows_plain(matrix_t.T)
+    _cuda_int64(x, "sponge")
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    n_cols, n_rows = x.shape
+    out = torch.empty((4, n_rows), dtype=torch.int64, device=x.device)
+    lib = _ready(x.device.index)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _check(lib.zk_poseidon_pallas_sponge(
+            x.data_ptr(), n_rows, n_cols, x.stride(0), out.data_ptr(),
+            stream), "sponge launch")
+    LAUNCHES["sponge"] += 1
+    return GF(out.t().contiguous())

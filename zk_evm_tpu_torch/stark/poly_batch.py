@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..field import GF, host, np_field
+from ..field import GF, host
 from .. import ntt
 from ..merkle import MerkleTree, build_commitment_tree
 
@@ -67,7 +67,7 @@ class PolynomialBatch:
 
         Returns array of shape (len(zs), num_polys, 2) uint64: sum_i c_i z^i
         as two base-field weighted sums per point, with the z-power tables
-        computed on the host."""
+        built on the batch's device."""
         out = np.empty((len(zs), self.num_polys, 2), dtype=np.uint64)
         for k, z in enumerate(zs):
             out[k] = _eval_at_ext_point(self.coeffs, z)
@@ -81,32 +81,24 @@ def _weighted_sums(coeffs: GF, pa: GF, pb: GF):
 def _eval_at_ext_point(coeffs: GF, z: tuple[int, int]) -> np.ndarray:
     """sum_i coeffs[:, i] * z^i for an extension point z; returns
     (num_polys, 2) uint64."""
-    n = coeffs.shape[1]
-    za, zb = _ext_powers(z, n)
-    ra, rb = _weighted_sums(coeffs, GF.from_u64(za, coeffs.device),
-                            GF.from_u64(zb, coeffs.device))
+    za, zb = ext_powers(z, coeffs.shape[1], coeffs.device)
+    ra, rb = _weighted_sums(coeffs, za, zb)
     return np.stack([ra.to_u64(), rb.to_u64()], axis=-1)
 
 
-def _ext_powers(z: tuple[int, int], n: int) -> tuple[np.ndarray, np.ndarray]:
-    """[(z^0) .. (z^(n-1))] in GF(p^2), host-exact, by log-doubling in
-    numpy (two u64 arrays)."""
-    nf = np_field
-    a = np.empty(n, dtype=np.uint64)
-    b = np.empty(n, dtype=np.uint64)
-    a[0], b[0] = 1, 0
-    filled = 1
+def ext_powers(z: tuple[int, int], n: int, device=None) -> tuple[GF, GF]:
+    """[(z^0) .. (z^(n-1))] in GF(p^2) as two GF vectors on `device`, by
+    log-doubling: each step multiplies the filled prefix by z^filled."""
+    a = GF.const(1, (1,), device)
+    b = GF.const(0, (1,), device)
     cur = z  # z^filled
-    while filled < n:
-        take = min(filled, n - filled)
+    while a.shape[0] < n:
+        take = min(a.shape[0], n - a.shape[0])
         sa, sb = cur
         # (a + bX)(sa + sbX) = (a sa + 7 b sb) + (a sb + b sa) X
-        na = nf.add(nf.mul(a[:take], np.uint64(sa)),
-                    nf.mul(nf.mul(b[:take], np.uint64(sb)), np.uint64(7)))
-        nb = nf.add(nf.mul(a[:take], np.uint64(sb)),
-                    nf.mul(b[:take], np.uint64(sa)))
-        a[filled:filled + take] = na
-        b[filled:filled + take] = nb
-        cur = host.emul(cur, cur) if take == filled else cur
-        filled += take
+        na = a[:take] * sa + b[:take] * host.fmul(7, sb)
+        nb = a[:take] * sb + b[:take] * sa
+        a = GF.concatenate([a, na], axis=0)
+        b = GF.concatenate([b, nb], axis=0)
+        cur = host.emul(cur, cur)
     return a, b

@@ -1,7 +1,9 @@
-"""Proof (de)serialization: JSON with exact ints, for StarkProof.
+"""Proof (de)serialization: JSON with exact ints, for StarkProof and
+AllProof.
 
-The same JSON as the JAX package's `proof_to_json` for a single-table
-proof: the dataclasses keep the JAX package's fields in its order."""
+The same JSON as the JAX package's `proof_to_json`: the dataclasses keep
+the JAX package's fields in its order. Block public values are not ported
+yet, so an AllProof's `public_values` is always null."""
 
 from __future__ import annotations
 
@@ -10,9 +12,10 @@ import json
 
 from .fri import (FriProof, FriQueryRound, FriQueryStep, FriInitialProof)
 from .proof import StarkProof, StarkOpeningSet
+from .multi import AllProof
 
 
-def proof_to_json(proof: StarkProof) -> str:
+def proof_to_json(proof: StarkProof | AllProof) -> str:
     return json.dumps(dataclasses.asdict(proof))
 
 
@@ -58,3 +61,14 @@ def stark_proof_from_dict(d) -> StarkProof:
 
 def stark_proof_from_json(s: str) -> StarkProof:
     return stark_proof_from_dict(json.loads(s))
+
+
+def all_proof_from_json(s: str) -> AllProof:
+    d = json.loads(s)
+    if d.get("public_values") is not None:
+        raise NotImplementedError("block public values: later slice")
+    return AllProof(
+        proofs=[stark_proof_from_dict(p) if p is not None else None
+                for p in d["proofs"]],
+        table_in_use=list(d["table_in_use"]),
+        public_inputs=list(d["public_inputs"]))

@@ -153,6 +153,9 @@ class Stark:
     # JAX package; the port proves tables without them so far.
     num_preprocessed: int = 0
 
+    def requires_ctls(self):
+        return False
+
     def eval(self, frame: StarkFrame, cc: ConstraintConsumer) -> None:
         raise NotImplementedError
 

@@ -1,8 +1,9 @@
 """Single-table STARK verifier (host-exact python ints).
 
 Independent implementation of the checks — shares no device code with the
-prover, mirroring the reference's verify_stark_proof_with_challenges path.
-Tables with lookups or cross-table lookups come in a later slice."""
+prover, mirroring the reference's verify_stark_proof_with_challenges path,
+lookups and cross-table lookups included. Tables with preprocessed columns
+come in a later slice."""
 
 from __future__ import annotations
 
@@ -11,32 +12,35 @@ from ..challenger import Challenger
 from .config import StarkConfig
 from .stark import Stark, StarkFrame, ConstraintConsumer
 from .proof import StarkProof
-from . import domains, fri
+from . import domains, fri, lookup
 
 
 def verify_stark(stark: Stark, proof: StarkProof, config: StarkConfig,
-                 challenger: Challenger, ctl_groups=None,
+                 challenger: Challenger,
+                 challenges: lookup.ChallengeSet | None = None,
+                 ctl_groups=None,
+                 observe_trace_cap: bool = True,
                  expected_public_inputs: list[int] | None = None) -> None:
     """Raises AssertionError on any failure. `challenger` must be at the
-    same transcript position as the prover's on entry. The proof's public
-    inputs are observed in the transcript, binding them to every
-    challenge; callers with an expectation pass
-    `expected_public_inputs`."""
-    if stark.lookups() or ctl_groups:
-        raise NotImplementedError("lookups: later slice")
+    same transcript position as the prover's on entry.
+
+    Single-table mode (observe_trace_cap=True) observes the proof's
+    public inputs in the transcript, binding them to every challenge; in
+    AllStark mode the caller observes them globally. Callers with an
+    expectation pass `expected_public_inputs`."""
     if stark.num_preprocessed:
         raise NotImplementedError("preprocessed columns: later slice")
     fri_cfg = config.fri_config
     degree_bits = proof.degree_bits
     n = 1 << degree_bits
     ops = proof.openings
+    groups = list(ctl_groups or [])
+    lookups = stark.lookups()
+    has_aux = bool(lookups or groups)
 
     assert len(ops.trace_local) == stark.num_columns
     assert len(ops.trace_next) == stark.num_columns
     assert len(ops.quotient) == config.num_challenges << config.rate_bits
-    assert not (ops.aux_local or ops.aux_next or ops.ctl_zs_first), \
-        "aux openings in a proof without lookups"
-    assert proof.aux_cap is None, "aux cap in a proof without lookups"
     assert len(proof.public_inputs) == stark.num_public_inputs, \
         "public input count mismatch"
     if expected_public_inputs is not None:
@@ -47,8 +51,26 @@ def verify_stark(stark: Stark, proof: StarkProof, config: StarkConfig,
         assert len(cap) == cap_len, "cap size mismatch"
 
     challenger.compact()
-    challenger.observe_cap(proof.trace_cap)
-    challenger.observe_elements(proof.public_inputs)
+    if observe_trace_cap:
+        challenger.observe_cap(proof.trace_cap)
+        challenger.observe_elements(proof.public_inputs)
+    if has_aux:
+        if challenges is None:
+            challenges = lookup.get_challenge_set(
+                challenger, config.num_challenges)
+        num_aux = lookup.num_aux_columns(lookups, groups,
+                                         len(challenges.pairs))
+        assert len(ops.aux_local) == num_aux
+        assert len(ops.aux_next) == num_aux
+        assert proof.aux_cap is not None
+        assert len(proof.aux_cap) == cap_len, "aux cap size mismatch"
+        challenger.observe_cap(proof.aux_cap)
+        z_idxs = lookup.ctl_z_first_indices(lookups, groups, challenges)
+        assert len(ops.ctl_zs_first) == len(z_idxs)
+    else:
+        assert not (ops.aux_local or ops.aux_next or ops.ctl_zs_first), \
+            "aux openings in a proof without lookups"
+        assert proof.aux_cap is None, "aux cap in a proof without lookups"
     alphas = challenger.get_n_challenges(config.num_challenges)
     challenger.observe_cap(proof.quotient_cap)
     zeta = challenger.get_extension_challenge()
@@ -61,11 +83,15 @@ def verify_stark(stark: Stark, proof: StarkProof, config: StarkConfig,
     frame = StarkFrame(
         local=[HExt(v) for v in ops.trace_local],
         next_=[HExt(v) for v in ops.trace_next],
+        aux_local=[HExt(v) for v in ops.aux_local],
+        aux_next=[HExt(v) for v in ops.aux_next],
         public_inputs=list(proof.public_inputs))
     cc = ConstraintConsumer(
         alphas=alphas, zero=HExt.zero(), z_last=HExt(z_last),
         lagrange_first=HExt(l_first), lagrange_last=HExt(l_last))
     stark.eval(frame, cc)
+    if has_aux:
+        lookup.eval_aux_constraints(lookups, groups, challenges, frame, cc)
 
     zeta_pow_n = HExt(host.eexp(zeta, n))
     chunks_per = 1 << config.rate_bits
@@ -78,21 +104,42 @@ def verify_stark(stark: Stark, proof: StarkProof, config: StarkConfig,
         rhs = rhs * HExt(zh)
         assert acc == rhs, f"constraint identity failed (challenge {i})"
 
-    # ---- FRI (oracle order: [trace, quotient]) --------------------------
+    # ---- FRI (oracle order: [trace, aux?, quotient]) ---------------------
     challenger.observe_elements(ops.observe_order())
     alpha = challenger.get_extension_challenge()
     num_wit = stark.num_columns
-    trace_entries = [(0, i) for i in range(num_wit)]
+    oracle_caps = [proof.trace_cap]
+    oracle_widths = [num_wit]
+    zeta_entries = [(0, i) for i in range(num_wit)]
+    next_entries = list(zeta_entries)
+    zeta_values = list(ops.trace_local)
+    next_values = list(ops.trace_next)
+    if has_aux:
+        aidx = len(oracle_caps)
+        num_aux = len(ops.aux_local)
+        oracle_caps.append(proof.aux_cap)
+        oracle_widths.append(num_aux)
+        aux_entries = [(aidx, i) for i in range(num_aux)]
+        zeta_entries += aux_entries
+        zeta_values += list(ops.aux_local)
+        next_entries += aux_entries
+        next_values += list(ops.aux_next)
+    qidx = len(oracle_caps)
+    oracle_caps.append(proof.quotient_cap)
+    oracle_widths.append(len(ops.quotient))
+    zeta_entries += [(qidx, j) for j in range(len(ops.quotient))]
+    zeta_values += list(ops.quotient)
     batches = [
-        fri.FriOpeningBatch(
-            point=zeta,
-            entries=trace_entries + [(1, j) for j in
-                                     range(len(ops.quotient))],
-            values=list(ops.trace_local) + list(ops.quotient)),
-        fri.FriOpeningBatch(point=zeta_next, entries=trace_entries,
-                            values=list(ops.trace_next)),
+        fri.FriOpeningBatch(point=zeta, entries=zeta_entries,
+                            values=zeta_values),
+        fri.FriOpeningBatch(point=zeta_next, entries=next_entries,
+                            values=next_values),
     ]
-    fri.verify_fri([proof.trace_cap, proof.quotient_cap], batches, alpha,
-                   degree_bits, proof.fri_proof, challenger, fri_cfg,
-                   oracle_widths=[num_wit, len(ops.quotient)],
-                   hasher=config.hasher)
+    if has_aux and ops.ctl_zs_first:
+        batches.append(fri.FriOpeningBatch(
+            point=(1, 0),
+            entries=[(aidx, i) for i in z_idxs],
+            values=[(v, 0) for v in ops.ctl_zs_first]))
+    fri.verify_fri(oracle_caps, batches, alpha, degree_bits,
+                   proof.fri_proof, challenger, fri_cfg,
+                   oracle_widths=oracle_widths, hasher=config.hasher)

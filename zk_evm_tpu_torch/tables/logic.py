@@ -3,8 +3,7 @@
 Functional twin of the reference's logic table (523 columns = 3 op flags +
 2x256 input bits + 8 packed 32-bit result limbs; zk_evm's
 evm_arithmetization/src/logic.rs:26-71, constraints :249-305; spec
-book/src/tables/logic.md). Serves the CPU and KeccakSponge tables via CTL;
-its CTL columns (`ctl_data`, `ctl_filter`) come with the CTL slice.
+book/src/tables/logic.md). Serves the CPU and KeccakSponge tables via CTL.
 
 Packed-operation identity (one degree-3 constraint set for all three ops):
     op(x,y) = A*x*y + B*(x+y),  A = f_and - f_or - 2*f_xor, B = f_or + f_xor
@@ -17,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..field import host
-from ..stark import Stark, StarkFrame, ConstraintConsumer
+from ..stark import Stark, StarkFrame, ConstraintConsumer, Filter, ColExpr, col
 
 # column layout
 IS_AND = 0
@@ -29,6 +28,22 @@ RESULT = INPUT1 + 256            # 8 x 32-bit limb columns
 NUM_COLUMNS = RESULT + 8
 
 PACKED_LIMB_BITS = 32
+
+
+def ctl_data():
+    """Looked by CPU and KeccakSponge: opcode (0x16/0x17/0x18 from flags),
+    input0/input1 as 8 packed u32 limbs each (from bits), result limbs."""
+    out = [ColExpr(terms=((IS_AND, 0x16), (IS_OR, 0x17), (IS_XOR, 0x18)))]
+    for base in (INPUT0, INPUT1):
+        for j in range(8):
+            out.append(ColExpr(terms=tuple(
+                (base + 32 * j + t, 1 << t) for t in range(32))))
+    out.extend(col(RESULT + j) for j in range(8))
+    return tuple(out)
+
+
+def ctl_filter() -> Filter:
+    return Filter(sum_cols=(IS_AND, IS_OR, IS_XOR))
 
 
 class LogicStark(Stark):

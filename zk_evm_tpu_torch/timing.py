@@ -91,14 +91,17 @@ def timed(name: str):
     log = logging.getLogger("zk_evm_tpu_torch")
     tree = _ACTIVE.get()
     t0 = time.perf_counter()
+    scope = tree.scope(name) if tree is not None \
+        else contextlib.nullcontext()
     try:
-        if tree is None:
-            yield None
-        else:
-            with tree.scope(name) as node:
+        with scope as node:
+            try:
                 yield node
+            finally:
+                # inside the scope, so the node's time includes the
+                # device work the phase queued
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
     finally:
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         log.info("phase %-40s %8.2fs", name, dt)
