@@ -23,7 +23,8 @@ from zk_evm_tpu_torch.stark import (StarkConfig, FriConfig, prove_all,
 from zk_evm_tpu_torch.stark.multi import AllProof
 from zk_evm_tpu_torch.stark.serialization import (all_proof_from_json,
                                                   proof_to_json)
-from zk_evm_tpu_torch.tables import all_stark as ast, memory
+from zk_evm_tpu_torch.tables import (all_stark as ast, memory,
+                                     memory_continuation)
 from zk_evm_tpu_torch.tables.memory_chain import (chain_traces,
                                                   preinitialized_words)
 from zk_evm_tpu_torch.tables.segments import Segment
@@ -102,6 +103,45 @@ def test_tampered_memory_value_rejected():
                     jall_proof_from_json(proof_to_json(proof)),
                     jast.all_cross_table_lookups(), jcfg,
                     optional_tables=optional_of(traces))
+
+
+def test_extra_looking_values_balance_memory_ctl():
+    """Memory writes that no proved table looks up (as a block's
+    public-value writes at timestamp 2) unbalance the memory CTL until
+    the verifier adds their rows through `extra_looking_values`: both
+    packages' `verify_all` accept the port's proof with them and reject
+    it without."""
+    words, cfg, jcfg = CASES["graft_5_words"]
+    rng = np.random.default_rng(3)
+    values = [int.from_bytes(rng.bytes(32), "little") for _ in range(4)]
+    writes = [memory.MemoryOp(True, 2, 0, Segment.GlobalMetadata, i, False, v)
+              for i, v in enumerate(values)]
+    mem_trace, mem_after = memory.generate_trace(writes,
+                                                 mem_before_values=words)
+    traces = [None] * ast.NUM_TABLES
+    traces[ast.Table.Memory] = mem_trace
+    traces[ast.Table.MemBefore] = memory_continuation.generate_trace(words)
+    traces[ast.Table.MemAfter] = memory_continuation.generate_trace(
+        mem_after)
+    extra = {ast.MEMORY_CTL_IDX: [
+        [0, 0, int(Segment.GlobalMetadata), i]
+        + [(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)] + [2]
+        for i, v in enumerate(values)]}
+    proof = prove_all(ast.all_starks(), traces,
+                      ast.all_cross_table_lookups(), cfg, device="cpu")
+    jproof = jall_proof_from_json(proof_to_json(proof))
+    opt = optional_of(traces)
+    verify_all(ast.all_starks(), proof, ast.all_cross_table_lookups(), cfg,
+               extra_looking_values=extra, optional_tables=opt)
+    jverify_all(jast.all_starks(), jproof, jast.all_cross_table_lookups(),
+                jcfg, extra_looking_values=extra, optional_tables=opt)
+    with pytest.raises(AssertionError, match="'memory' unbalanced"):
+        verify_all(ast.all_starks(), proof, ast.all_cross_table_lookups(),
+                   cfg, optional_tables=opt)
+    with pytest.raises(AssertionError, match="'memory' unbalanced"):
+        jverify_all(jast.all_starks(), jproof,
+                    jast.all_cross_table_lookups(), jcfg,
+                    optional_tables=opt)
 
 
 def test_vacuous_proof_rejected():

@@ -156,6 +156,18 @@ def test_prove_stark_needs_cuda_or_explicit_cpu():
         prove_stark(FibStark(), trace, cfg, Challenger(), pis)
 
 
+@pytest.mark.parametrize("a,b,same", [
+    ("cpu", "cpu", True), ("cpu", "cpu:0", True), ("cuda:0", "cuda:0", True),
+    ("cuda:1", "cuda:0", False), ("cpu", "cuda:0", False),
+    ("cuda", "cuda", True)])
+def test_same_device(a, b, same):
+    """prove_stark's check that `device` names the trace batch's device:
+    an index-free name means the current device of its type."""
+    from zk_evm_tpu_torch.stark.prover import same_device
+    assert same_device(a, b) is same
+    assert same_device(b, a) is same
+
+
 @pytest.mark.parametrize("degree_bits,rate_bits", [(2, 1), (5, 1), (6, 2),
                                                    (4, 3)])
 def test_device_selectors_equal_host(degree_bits, rate_bits):

@@ -49,14 +49,10 @@ def observe_global(challenger: Challenger, caps, public_inputs) -> None:
 def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
               ctls: list[lookup.CrossTableLookup], config: StarkConfig,
               public_inputs: list[int] | None = None,
-              table_public_inputs: dict[int, list[int]] | None = None,
               device=None) -> AllProof:
     """Prove every in-use table under one transcript, on `device` (CUDA
     when not given). traces[i] may be None for unused optional tables
-    (zero cap observed, no proof). `table_public_inputs[t]` feeds table
-    t's per-proof public inputs without re-observing them — the global
-    observation already covers them when the caller passes the same
-    values in `public_inputs`."""
+    (zero cap observed, no proof)."""
     dev = resolve_device(device)
     public_inputs = public_inputs or []
     table_in_use = [t is not None for t in traces]
@@ -89,7 +85,6 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
         with timed(f"prove {stark.name} {trace.shape}"):
             proofs.append(prove_stark(
                 stark, trace, config, challenger,
-                public_inputs=(table_public_inputs or {}).get(t),
                 challenges=challenges, ctl_groups=groups,
                 observe_trace_cap=False, trace_batch=batches[t]))
         batches[t] = None       # free the table's device buffers
@@ -99,23 +94,20 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
 
 def verify_all(starks: list[Stark], all_proof: AllProof,
                ctls: list[lookup.CrossTableLookup], config: StarkConfig,
-               extra_looking_sums: dict[int, list[int]] | None = None,
                extra_looking_values: dict[int, list] | None = None,
                optional_tables: tuple[int, ...] = ()) -> None:
     """Verify every table proof under the replayed transcript, then check
-    every CTL's global sum: sum of looking totals (+ extra looking sums,
-    keyed by CTL index, one value per challenge) == looked total.
+    every CTL's global sum: sum of looking totals (+ the logUp sums of
+    `extra_looking_values`) == looked total.
 
     `extra_looking_values` maps a CTL index to raw value rows the
     VERIFIER contributes (e.g. the memory table's public-value writes);
     their logUp sums are computed here under the derived challenges —
-    callers cannot inject arbitrary sums. `extra_looking_sums` remains
-    for lower-level harnesses.
+    callers cannot inject arbitrary sums.
 
     `optional_tables` are the only table indices allowed to omit a proof;
     every other table MUST carry one — otherwise an all-None AllProof
     with degenerate 0==0 CTL sums verifies."""
-    extra_looking_sums = dict(extra_looking_sums or {})
     assert len(all_proof.proofs) == len(starks), "proof count mismatch"
     assert len(all_proof.table_in_use) == len(starks)
     for t, proof in enumerate(all_proof.proofs):
@@ -129,6 +121,7 @@ def verify_all(starks: list[Stark], all_proof: AllProof,
     observe_global(challenger, caps, all_proof.public_inputs)
     challenges = lookup.get_challenge_set(challenger, config.num_challenges)
 
+    extra_looking_sums = {}
     for ci, rows in (extra_looking_values or {}).items():
         sums = []
         for beta, gamma in challenges.pairs:
@@ -142,7 +135,6 @@ def verify_all(starks: list[Stark], all_proof: AllProof,
                     gp = host.fmul(gp, gamma)
                 s = host.fadd(s, host.finv(host.fadd(beta, combined)))
             sums.append(s)
-        assert ci not in extra_looking_sums
         extra_looking_sums[ci] = sums
 
     for t, (stark, proof) in enumerate(zip(starks, all_proof.proofs)):

@@ -35,6 +35,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def same_device(a, b) -> bool:
+    """Whether `a` and `b` name one device: a device without an index
+    names the current one of its type (`cuda` and `cuda:0` are one card
+    when card 0 is current)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.index == b.index or None not in (a.index, b.index):
+        return a.index == b.index
+    current = torch.cuda.current_device() if a.type == "cuda" else 0
+    return (current if a.index is None else a.index) == \
+        (current if b.index is None else b.index)
+
+
 def _powers(base: int, count: int, device) -> GF:
     """[base^0 .. base^(count-1)] on `device`, by log-doubling."""
     out = GF.const(1, (1,), device)
@@ -154,8 +168,8 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
                 GF.from_u64(trace, resolve_device(device)),
                 rate_bits=config.rate_bits,
                 cap_height=config.cap_height, hasher=config.hasher)
-    elif device is not None and torch.device(device) != \
-            trace_batch.lde.device:
+    elif device is not None and not same_device(device,
+                                                trace_batch.lde.device):
         raise ValueError(f"device {device} differs from the trace batch's "
                          f"{trace_batch.lde.device}")
     trace_cap = trace_batch.cap_ints()

@@ -16,20 +16,17 @@ from . import memory, memory_continuation
 from .all_stark import NUM_TABLES, Table
 from .segments import Segment
 
-SEGMENTS = (Segment.Code, Segment.MainMemory)
-
-
-def preinitialized_words(n_words: int, seed: int = 0, contexts: int = 3,
-                         segments=SEGMENTS) -> list:
+def preinitialized_words(n_words: int, seed: int = 0) -> list:
     """`n_words` ((context, segment, virt), value) pairs with random 256-bit
-    values from numpy's generator at `seed`. The words fill
-    contexts x segments blocks of contiguous virtual addresses from 0, so
-    the Memory trace needs few gap rows and every range check stays below
-    its row count."""
+    values from numpy's generator at `seed`. The words fill six blocks
+    of contiguous virtual addresses from 0, contexts 0-2 x {Code,
+    MainMemory}, so the Memory trace needs few gap rows and every range
+    check stays below its row count."""
     rng = np.random.default_rng(seed)
     limbs = rng.integers(0, 1 << 32, size=(n_words, 8), dtype=np.uint32)
     raw = limbs.astype("<u4").tobytes()
-    blocks = [(c, s) for c in range(contexts) for s in segments]
+    blocks = [(c, s) for c in range(3)
+              for s in (Segment.Code, Segment.MainMemory)]
     per_block = -(-n_words // len(blocks))
     words = []
     for i in range(n_words):
