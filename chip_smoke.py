@@ -3,8 +3,12 @@
     python3 chip_smoke.py
 
 Builds the four hand-written CUDA Poseidon kernels from zk_evm_tpu_torch/
-csrc/ (one nvcc per source, started together) and holds each against its
-plain PyTorch version and the python-int host twin. Then it drives three
+csrc/ (one nvcc per source, started together), logs each kernel's
+registers and spills as ptxas reported them, and holds each kernel
+against its plain PyTorch version, the python-int host twin and the
+python-int twin of the fast partial-round form the kernels run
+(`hash/poseidon_fast.py`), on random states and on states made of one
+boundary value in every lane. Then it drives three
 paths of the port, each with the kernels' launch counts set to 0 just
 before and read just after:
 
@@ -38,12 +42,12 @@ import time
 import numpy as np
 import torch
 
-from zk_evm_tpu_torch import bench, cuda_build
+from zk_evm_tpu_torch import bench, cuda_build, poseidon_ab
 from zk_evm_tpu_torch.bench import cuda_ms, random_gf
 from zk_evm_tpu_torch.challenger import Challenger
 from zk_evm_tpu_torch.field import GF, host
 from zk_evm_tpu_torch.hash import (host_poseidon, poseidon, poseidon_dense,
-                                   poseidon_pallas)
+                                   poseidon_fast, poseidon_pallas)
 from zk_evm_tpu_torch.parallel import commit_cap
 from zk_evm_tpu_torch.stark import (PolynomialBatch, StarkConfig,
                                     prove_all, prove_stark, verify_all,
@@ -93,13 +97,6 @@ KERNELS = {
 }
 PERMUTES = ("poseidon_permute", "poseidon_pallas_permute")
 SPONGES = ("poseidon_sponge", "poseidon_pallas_sponge")
-# Lower bound on the 32-bit integer multiply-adds of one permutation: 118
-# S-boxes (8 full rounds x 12 + 22 partial) of 4 Goldilocks products, each
-# product 4 32x32-bit partial products; 30 MDS layers of 12 x 12
-# small-constant products of both 32-bit halves of each word.
-IMAD_PER_PERMUTATION = 118 * 4 * 4 + 30 * 12 * 12 * 2
-IMAD_PER_SM_CLOCK = 64                      # Hopper's 32-bit IMAD issue rate
-HBM_BYTES_S = 3.35e12                       # H100 SXM data sheet
 
 
 def log(msg: str) -> None:
@@ -164,6 +161,13 @@ def phase_build() -> None:
         cuda_build.load(n)
     log(f"build: {', '.join(f'csrc/{n}.cu {how[n]}' for n in names)}; "
         f"loaded in {time.perf_counter() - t0:.2f} s")
+    for n in names:
+        resources = cuda_build.kernel_resources(cuda_build.ptxas_report(n))
+        for mangled, res in resources.items():
+            log(f"ptxas {poseidon_ab.kernel_of(mangled)}: "
+                f"{res['registers']} registers, spill stores "
+                f"{res['spill_stores']} bytes, spill loads "
+                f"{res['spill_loads']} bytes")
 
 
 def zero_counts() -> None:
@@ -179,16 +183,31 @@ def read_counts() -> dict:
 
 
 def phase_permute(rng, dev) -> dict:
+    """The permute kernels against the plain version on every state, and
+    against the host twin and the fast-form twin on the first rows: at
+    B = 1 the state is random; at larger B the first rows are the six
+    states with one boundary value in every lane, then states mixed from
+    boundary values."""
     err = dict.fromkeys(PERMUTES, 0)
+    uniform = np.repeat(np.array(BOUNDARY, dtype=np.uint64)[:, None], 12,
+                        axis=1)
     for batch in PERMUTE_BATCHES:
         states = rng.integers(0, P, size=(batch, 12), dtype=np.uint64)
         n_b = min(batch, 64)
         states[:n_b] = np.array(BOUNDARY, dtype=np.uint64)[
             rng.integers(0, len(BOUNDARY), size=(n_b, 12))]
+        if batch > len(BOUNDARY):
+            states[:len(BOUNDARY)] = uniform
         x = GF.from_u64(states, dev)
         want = poseidon.permute_plain(x)
-        twins = [host_poseidon.permute_py([int(v) for v in states[r]])
-                 for r in range(min(batch, 4))]
+        n_twins = min(batch, len(BOUNDARY) + 4)
+        twins = []
+        for r in range(n_twins):
+            row = [int(v) for v in states[r]]
+            twin = host_poseidon.permute_py(row)
+            if poseidon_fast.permute_fast(row) != twin:
+                raise AssertionError(f"fast-form twin != host twin, row {r}")
+            twins.append(twin)
         for name in PERMUTES:
             got = KERNELS[name][2](x)
             err[name] = max(err[name], max_abs_err(got, want))
@@ -198,8 +217,9 @@ def phase_permute(rng, dev) -> dict:
             for r, twin in enumerate(twins):
                 if [int(v) for v in out[r]] != twin:
                     raise AssertionError(f"{name} row {r} != host twin")
-    log(f"permute: dense and planes kernels == plain == host twin (exact) "
-        f"at B = {PERMUTE_BATCHES}")
+    log(f"permute: dense and planes kernels == plain == host twin == "
+        f"fast-form twin (exact) at B = {PERMUTE_BATCHES}, boundary "
+        f"values {BOUNDARY} in every lane")
     return err
 
 
@@ -208,6 +228,8 @@ def phase_sponge(rng, dev) -> dict:
     for n_cols in SPONGE_COLS:
         for n_rows in SPONGE_ROWS:
             m = rng.integers(0, P, size=(n_cols, n_rows), dtype=np.uint64)
+            k = min(n_cols, len(BOUNDARY))
+            m[:k, 0] = BOUNDARY[:k]             # leaf 0: boundary values
             mt = GF.from_u64(m, dev)
             want = poseidon.hash_rows_plain(mt.T)
             twin = host_poseidon.hash_or_noop([int(v) for v in m[:, 0]])
@@ -257,20 +279,10 @@ def once_ms(fn):
 
 def bound(name: str, shape: tuple, clock_mhz: float, sms: int):
     """(bound_ms, bound_by): the least time the card could take for the
-    call, the larger of its integer operations over the IMAD issue rate
-    and its bytes (inputs read once, outputs written once) over HBM."""
-    if name in PERMUTES:
-        (batch,) = shape
-        perms, nbytes = batch, batch * 12 * 8 * 2
-    else:
-        n_cols, n_rows = shape
-        perms = n_rows * -(-n_cols // 8)
-        nbytes = (n_cols + 4) * n_rows * 8
-    ops_ms = perms * IMAD_PER_PERMUTATION \
-        / (sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms \
-        else (bytes_ms, "bytes")
+    call (`bench.poseidon_bound_ms`)."""
+    work = bench.permute_work(*shape) if name in PERMUTES \
+        else bench.sponge_work(*shape)
+    return bench.poseidon_bound_ms(*work, clock_mhz, sms)
 
 
 def phase_kernel_times(rng, dev, smi: str, clock_mhz: float) -> dict:
@@ -279,9 +291,9 @@ def phase_kernel_times(rng, dev, smi: str, clock_mhz: float) -> dict:
     bound_ms, bound_by)}."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
-    log(f"bounds: {IMAD_PER_PERMUTATION} IMADs a permutation over {sms} SMs "
-        f"x {IMAD_PER_SM_CLOCK} a clock x {clock_mhz:.0f} MHz; bytes over "
-        f"{HBM_BYTES_S / 1e12:.2f} TB/s")
+    log(f"bounds: {bench.IMAD_PER_PERMUTATION} IMADs a permutation over "
+        f"{sms} SMs x {bench.IMAD_PER_SM_CLOCK} a clock x {clock_mhz:.0f} "
+        f"MHz; bytes over {bench.HBM_BYTES_S / 1e12:.2f} TB/s")
     work = [((PERMUTE_BATCHES[-1],), PERMUTES)] \
         + [(shape, SPONGES) for shape in LEAF_SHAPES]
     for shape, names in work:

@@ -131,3 +131,20 @@ def test_sponge_kernel_matches_plain(cuda_device, n_cols, n_rows):
     # a row-major matrix goes through the strides, not a copy
     row_major = GF(m.v.T.contiguous())
     assert np.array_equal(poseidon.hash_rows(row_major).to_u64(), got)
+
+
+@pytest.mark.cuda
+def test_kernels_on_boundary_states(cuda_device):
+    """States made of one boundary value in every lane, through the
+    fast partial-round kernels: equal to the plain version and the host
+    twin; the sponge over leaves of those words likewise."""
+    s = np.repeat(BOUNDARY[:, None], pp.WIDTH, axis=1)
+    got = poseidon_dense.permute_dense(GF.from_u64(s, cuda_device)).to_u64()
+    assert np.array_equal(got, poseidon.permute_plain(GF.from_u64(s))
+                          .to_u64())
+    assert rows(got) == [hp.permute_py([int(v) for v in r]) for r in s]
+    for n_cols in (5, 8, 13, 30):
+        m = np.repeat(BOUNDARY[:, None], n_cols, axis=1)   # (6, n_cols)
+        mt = GF.from_u64(np.ascontiguousarray(m.T), cuda_device)
+        got = poseidon_dense.sponge_dense(mt).to_u64()
+        assert rows(got) == [hp.hash_or_noop([int(v) for v in r]) for r in m]

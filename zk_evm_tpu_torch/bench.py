@@ -40,6 +40,18 @@ LOG_PERM = 18
 ITERS = 10
 SEED = 42
 
+# The least work of one permutation, in 32-bit integer multiply-adds, in
+# its cheapest known form (fast partial rounds): 118 S-boxes (8 full
+# rounds x 12 + 22 partial) of 4 Goldilocks products, each product 4
+# 32x32-bit partial products; 8 dense MDS layers of 12 x 12 small-constant
+# products of both 32-bit halves of each word; the 11 x 11 initial matrix
+# of general products; 22 sparse layers of 22 general products plus one
+# small-constant product of both halves.
+IMAD_PER_PERMUTATION = (118 * 4 * 4 + 8 * 12 * 12 * 2 + 11 * 11 * 4
+                        + 22 * (22 * 4 + 2))
+IMAD_PER_SM_CLOCK = 64                      # Hopper's 32-bit IMAD issue rate
+HBM_BYTES_S = 3.35e12                       # H100 SXM data sheet
+
 
 def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
@@ -59,6 +71,30 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def poseidon_bound_ms(perms: int, nbytes: int, clock_mhz: float,
+                      sms: int) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take for
+    `perms` permutations that read and write `nbytes` in all, the larger
+    of their integer operations over the IMAD issue rate and their bytes
+    over HBM."""
+    ops_ms = perms * IMAD_PER_PERMUTATION \
+        / (sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+def sponge_work(n_cols: int, n_rows: int) -> tuple[int, int]:
+    """(permutations, bytes) of a sponge over n_rows leaves of n_cols
+    words: every word read once, a 4-word digest written per leaf."""
+    return n_rows * -(-n_cols // 8), (n_cols + 4) * n_rows * 8
+
+
+def permute_work(batch: int) -> tuple[int, int]:
+    """(permutations, bytes) of a permutation of `batch` states."""
+    return batch, batch * 12 * 8 * 2
 
 
 def random_gf(rng, shape, dev) -> GF:

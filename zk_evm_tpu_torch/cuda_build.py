@@ -5,7 +5,9 @@ plain C interface under `build/kernels/` at the root of the checkout, and
 is loaded with ctypes. The library's file name carries a hash of the
 source, the shared headers (csrc/*.cuh) and the flags, so an edited
 source rebuilds and an unchanged one is reused. `build_all` starts one
-nvcc per source at once. Nothing here runs at import time.
+nvcc per source at once. ptxas's report of each kernel's registers,
+shared memory and spills is kept beside its library (`ptxas_report`).
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from functools import lru_cache
@@ -21,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -43,6 +46,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{tag[:16]}.so"
 
 
+def start_nvcc(src: Path, out: Path) -> subprocess.Popen:
+    """Start nvcc with NVCC_FLAGS on one source into one library."""
+    return subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_nvcc(proc: subprocess.Popen, src: Path, report: Path) -> None:
+    """Wait for nvcc; raise with its errors, or keep its ptxas report."""
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{err}")
+    report.write_text(out + err)
+
+
+def report_path(so: Path) -> Path:
+    """Where the ptxas report of a library is kept."""
+    return so.with_name(f"{so.name}.ptxas.txt")
+
+
 def _start_build(name: str):
     """Start nvcc on csrc/<name>.cu; returns (process, tmp, so), or None
     when the library already exists."""
@@ -51,19 +74,14 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, tmp, so
+    return start_nvcc(CSRC / f"{name}.cu", tmp), tmp, so
 
 
 def _finish_build(name: str, started) -> None:
     if started is None:
         return
     proc, tmp, so = started
-    _out, err = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{err}")
+    finish_nvcc(proc, CSRC / f"{name}.cu", report_path(so))
     os.replace(tmp, so)
 
 
@@ -78,6 +96,35 @@ def build_all(names) -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas printed when csrc/<name>.cu was built."""
+    return report_path(library_path(name)).read_text()
+
+
+def kernel_resources(report: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from a ptxas -v report (bytes for the spills)."""
+    out = {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 @lru_cache(maxsize=None)

@@ -21,7 +21,7 @@ import torch
 
 from ..field import GF
 from .. import cuda_build
-from . import poseidon
+from . import poseidon, poseidon_fast
 from . import poseidon_params as pp
 
 LAUNCHES = {"permute": 0, "sponge": 0}
@@ -37,6 +37,8 @@ def _library() -> ctypes.CDLL:
     lib.zk_poseidon_mds_coef.restype = ctypes.c_int
     lib.zk_poseidon_set_round_constants.argtypes = [_c]
     lib.zk_poseidon_set_round_constants.restype = ctypes.c_int
+    lib.zk_poseidon_set_fast_constants.argtypes = [_c, _i64]
+    lib.zk_poseidon_set_fast_constants.restype = ctypes.c_int
     lib.zk_poseidon_permute.argtypes = [_c, _c, _i64, _c]
     lib.zk_poseidon_permute.restype = ctypes.c_int
     lib.zk_poseidon_sponge.argtypes = [_c, _i64, _i64, _i64, _i64, _c, _c]
@@ -52,12 +54,16 @@ def _library() -> ctypes.CDLL:
 
 @lru_cache(maxsize=None)
 def _ready(device_index: int) -> ctypes.CDLL:
-    """The library with the round constants uploaded to this device."""
+    """The library with the round constants and the fast partial-round
+    constants uploaded to this device."""
     lib = _library()
     rcs = np.ascontiguousarray(pp.round_constants_np())
+    fast = poseidon_fast.fast_constants_np()
     with torch.cuda.device(device_index):
         _check(lib.zk_poseidon_set_round_constants(rcs.ctypes.data),
                "uploading round constants")
+        _check(lib.zk_poseidon_set_fast_constants(fast.ctypes.data, len(fast)),
+               "uploading fast partial-round constants")
     return lib
 
 
