@@ -62,12 +62,15 @@ namespace {
 
 // Launch shapes (step 5): 256-thread permute blocks with at most 128
 // registers a thread (ptxas gives 116, no spills) ran 2^18 states in 0.46
-// ms against 0.61 for 128-thread blocks at 120 registers; the sponge
-// keeps 128-thread blocks and no register cap (ptxas gives 216): every
-// cap or larger block tried was as fast or slower at its three shapes.
+// ms against 0.61 for 128-thread blocks at 120 registers. The sponge
+// keeps 128-thread blocks with an explicit minimum of one block an SM,
+// which lets ptxas take 216 registers: without the minimum it stopped at
+// 128 and spilled, and the 30-column sponge took 18.6 ms instead of
+// 14.7; every tighter cap or larger block tried was as fast or slower.
 constexpr int PERMUTE_THREADS = 256;
 constexpr int PERMUTE_MIN_BLOCKS = 2;
 constexpr int SPONGE_THREADS = 128;
+constexpr int SPONGE_MIN_BLOCKS = 1;
 
 // states: (batch, 12) row-major; out may not alias states.
 __global__ void __launch_bounds__(PERMUTE_THREADS, PERMUTE_MIN_BLOCKS)
@@ -86,7 +89,7 @@ poseidon_permute_kernel(const uint64_t* __restrict__ states,
 
 // Leaf (r, c) of the matrix sits at m[r * row_stride + c * col_stride];
 // out: (n_rows, 4) row-major digests.
-__global__ void __launch_bounds__(SPONGE_THREADS)
+__global__ void __launch_bounds__(SPONGE_THREADS, SPONGE_MIN_BLOCKS)
 poseidon_sponge_kernel(const uint64_t* __restrict__ m, int64_t n_rows,
                        int64_t n_cols, int64_t row_stride,
                        int64_t col_stride, uint64_t* __restrict__ out) {
