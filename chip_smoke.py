@@ -23,6 +23,16 @@ before and read just after:
    rows the CUDA `proof_to_json` equals the CPU one; at full width
    (786,432 preinitialized words, every table 2^20 rows) it is proved at
    the standard config and verified by the port's `verify_all`.
+4. An Ethereum block, through the port's command line
+   (`zk_evm_tpu_torch.__main__.main`, in this process): `prove --fixture
+   simple-transfer --max-cpu-len-log 15` at the standard config runs the
+   witness generation (the native VM core, built from native/ with g++),
+   proves the two segments on the card, chains MemAfter -> MemBefore and
+   aggregates the block on the host; `verify` accepts the block proof and
+   rejects it once one public value of the first segment changes. The
+   same for `add11`, a contract call, in one segment. Then one segment of
+   simple-transfer at the test config is proved on the card, and the
+   sha256 of its `proof_to_json` must equal the JAX package's.
 
 Field arithmetic is exact, so every comparison is bit-for-bit equality:
 the tolerance is 0. Every phase raises on failure. Needs one CUDA device;
@@ -34,29 +44,42 @@ card's `nvidia-smi` name and power limit, and the result JSON.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import importlib.util
+import io
 import json
+import os
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from zk_evm_tpu_torch import bench, cuda_build, poseidon_ab
+from zk_evm_tpu_torch import __main__ as cli
+from zk_evm_tpu_torch import bench, cuda_build, native, poseidon_ab
 from zk_evm_tpu_torch.bench import cuda_ms, random_gf
 from zk_evm_tpu_torch.challenger import Challenger
 from zk_evm_tpu_torch.field import GF, host
 from zk_evm_tpu_torch.hash import (host_poseidon, poseidon, poseidon_dense,
                                    poseidon_fast, poseidon_pallas)
+from zk_evm_tpu_torch.orchestration.block import prove_block, verify_block
 from zk_evm_tpu_torch.parallel import commit_cap
 from zk_evm_tpu_torch.stark import (PolynomialBatch, StarkConfig,
                                     prove_all, prove_stark, verify_all,
                                     verify_stark)
+from zk_evm_tpu_torch.stark.public_values import public_values_from_dict
 from zk_evm_tpu_torch.stark.serialization import proof_to_json
 from zk_evm_tpu_torch.tables import all_stark, logic, memory
 from zk_evm_tpu_torch.tables.memory_chain import (chain_traces,
                                                   preinitialized_words)
 from zk_evm_tpu_torch.timing import TimingTree, timed
+from zk_evm_tpu_torch.witness import native_vm
+from zk_evm_tpu_torch.witness.interpreter import Interpreter
+from zk_evm_tpu_torch.witness.kernel import combined_kernel
+from zk_evm_tpu_torch.witness.segments import generate_segment_tables
+from zk_evm_tpu_torch.witness.testing_fixtures import FIXTURES
 
 P = host.P
 SEED = 0
@@ -72,12 +95,24 @@ LOGIC_LOG_ROWS = 16
 CHAIN_CHECK_WORDS = 700                     # Memory 2^10 rows
 CHAIN_WORDS = 3 << 18                       # every chain table 2^20 rows
 CHAIN_LOG_ROWS = 20
+# the block phase: proofs go under build/ at the root of the checkout
+BLOCK_DIR = Path(__file__).resolve().parent / "build" / "smoke"
+BLOCK_SEGMENT_LOG = 15                      # simple-transfer: 2 segments
+KECCAK_COLUMNS = 2431                       # the widest leaf of the block
+KECCAK_LOG_ROWS = 14                        # Keccak's minimum degree
+# sha256 of the JAX package's proof_to_json(prove_block(...)) of the
+# one-segment simple-transfer block (max_cpu_len_log=16, default table
+# sizes) at StarkConfig.test_config(), made on the CPU;
+# tests/test_torch_block.py holds the same constant
+SIMPLE_TRANSFER_TEST_CONFIG_SHA256 = (
+    "3902cdd9bd01926e9f362b7c14ea25972b7c1720ad086fc708f06891a3743470")
 # leaf shapes (n_cols, n_rows) of the main paths: the commit benchmark's
 # 2^16-row LDE, the Logic trace's and the Memory trace's LDEs, and the
 # planes sponge's shape in compare_poseidon_layouts
 LEAF_SHAPES = ((COMMIT_POLYS, 2 << COMMIT_LOG_ROWS),
                (logic.NUM_COLUMNS, 2 << LOGIC_LOG_ROWS),
                (memory.NUM_COLUMNS, 2 << CHAIN_LOG_ROWS),
+               (KECCAK_COLUMNS, 2 << KECCAK_LOG_ROWS),
                (64, 1 << 14))
 BOUNDARY = (0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63)
 KERNELS = {
@@ -462,11 +497,133 @@ def phase_chain_full(dev, smi: str) -> dict:
     return launches
 
 
+def run_cli(argv: list) -> tuple:
+    """`python3 -m zk_evm_tpu_torch ARGV` in this process; its standard
+    output and error are logged. Returns (exit code, standard output)."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    log(f"$ python3 -m zk_evm_tpu_torch {' '.join(argv)}  -> exit {rc} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in (err.getvalue() + out.getvalue()).splitlines():
+        log(f"  | {line}")
+    return rc, out.getvalue()
+
+
+def tamper_public_value(path: Path, out: Path) -> None:
+    """The block proof at `path` with block_gas_used of the first
+    segment's public values raised by one and its public inputs
+    re-encoded to match: only the transcript can reject it."""
+    d = json.loads(path.read_text())
+    seg = d["batches"][0][0]
+    seg["public_values"]["block_metadata"]["block_gas_used"] += 1
+    seg["public_inputs"] = public_values_from_dict(
+        seg["public_values"]).to_elements()
+    out.write_text(json.dumps(d))
+
+
+def block_shapes(path: Path) -> list:
+    """Per segment, {table: log2 rows} of the proofs in a block file."""
+    names = {v: k for k, v in vars(all_stark.Table).items()
+             if isinstance(v, int)}
+    d = json.loads(path.read_text())
+    return [{names[t]: p["degree_bits"] for t, p in enumerate(seg["proofs"])
+             if p is not None} for chain in d["batches"] for seg in chain]
+
+
+def prove_and_verify_fixture(fixture: str, extra: list, segments: int,
+                             smi: str) -> dict:
+    """`prove` then `verify` of a fixture block through the command line,
+    and `verify` of the proof with one public value changed. Returns the
+    kernels' launches during `prove`."""
+    proof = BLOCK_DIR / f"{fixture}.zkproof"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, out = run_cli(["prove", "--fixture", fixture, *extra, "--device",
+                       "cuda", "-o", str(proof)])
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if rc != 0:
+        raise AssertionError(f"prove --fixture {fixture}: exit {rc}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    if summary["segments"] != [segments]:
+        raise AssertionError(f"{fixture}: {summary['segments']} segments, "
+                             f"expected [{segments}]")
+    for name in ("poseidon_permute", "poseidon_sponge"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched proving "
+                                 f"{fixture}")
+    log(f"{fixture}: proved in {seconds:.2f} s at the standard config "
+        f"[{smi}]; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}; state_root_after {summary['state_root_after']}; "
+        f"log2 rows per segment {block_shapes(proof)}")
+    rc, out = run_cli(["verify", str(proof), "--device", "cuda"])
+    if rc != 0 or not json.loads(out.strip().splitlines()[-1])["ok"]:
+        raise AssertionError(f"verify rejected the {fixture} block proof")
+    bad = BLOCK_DIR / f"{fixture}-tampered.zkproof"
+    tamper_public_value(proof, bad)
+    rc, _ = run_cli(["verify", str(bad), "--device", "cuda"])
+    if rc != 1:
+        raise AssertionError(f"verify of the tampered {fixture} proof: exit "
+                             f"{rc}, expected 1")
+    log(f"{fixture}: verify accepts the block proof and rejects it with "
+        f"block_gas_used + 1 in segment 0")
+    return launches
+
+
+def phase_block(dev, smi: str) -> dict:
+    """The block path through the command line; returns the dense
+    kernels' launches while proving simple-transfer."""
+    t0 = time.perf_counter()
+    lib = native.build()
+    if not native_vm.available():
+        raise AssertionError("the native VM core did not load")
+    kernel = combined_kernel()
+    model = type(Interpreter(kernel, 0).memory).__name__
+    if model != "NativeMemory":
+        raise AssertionError(f"witness memory model {model}, not native")
+    log(f"native/ built into {lib.name} and loaded in "
+        f"{time.perf_counter() - t0:.2f} s; witness memory model {model}")
+    BLOCK_DIR.mkdir(parents=True, exist_ok=True)
+    launches = prove_and_verify_fixture(
+        "simple-transfer", ["--max-cpu-len-log", str(BLOCK_SEGMENT_LOG)], 2,
+        smi)
+    prove_and_verify_fixture("add11", [], 1, smi)
+    # one simple-transfer segment at the test config and default table
+    # sizes against the JAX package's proof
+    if os.environ.get("ZK_TABLE_MIN_DEGREES"):
+        raise AssertionError("ZK_TABLE_MIN_DEGREES is set: the test-config "
+                             "segment needs the default table sizes")
+    cfg = StarkConfig.test_config()
+    t0 = time.perf_counter()
+    ((_, gt),) = generate_segment_tables(
+        kernel, FIXTURES["simple-transfer"](), max_cpu_len_log=16)
+    t1 = time.perf_counter()
+    proof = prove_block(gt, cfg, device=dev)
+    t2 = time.perf_counter()
+    text = proof_to_json(proof)
+    (BLOCK_DIR / "simple-transfer-test-config.json").write_text(text)
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    if digest != SIMPLE_TRANSFER_TEST_CONFIG_SHA256:
+        raise AssertionError(f"test-config segment: sha256 {digest} != the "
+                             f"JAX package's "
+                             f"{SIMPLE_TRANSFER_TEST_CONFIG_SHA256}")
+    verify_block(proof, kernel, cfg, device=dev)
+    log(f"simple-transfer, 1 segment, test config: witness {t1 - t0:.2f} s, "
+        f"prove {t2 - t1:.2f} s, verify {time.perf_counter() - t2:.2f} s; "
+        f"proof_to_json sha256 == the JAX package's {digest}")
+    return launches
+
+
 # the shape each kernel's row of the kernels line reports: the PoW grind
-# batch, the Memory trace's leaves, the commit benchmark's leaves
+# batch, the block's widest leaves (Keccak), the commit benchmark's leaves
 ROW_SHAPES = {
     "poseidon_permute": (PERMUTE_BATCHES[-1],),
-    "poseidon_sponge": (memory.NUM_COLUMNS, 2 << CHAIN_LOG_ROWS),
+    "poseidon_sponge": (KECCAK_COLUMNS, 2 << KECCAK_LOG_ROWS),
     "poseidon_pallas_permute": (PERMUTE_BATCHES[-1],),
     "poseidon_pallas_sponge": (COMMIT_POLYS, 2 << COMMIT_LOG_ROWS),
 }
@@ -486,13 +643,14 @@ def main() -> None:
     phase_logic_full(rng, dev, smi)
     bench_launches = phase_bench(smi)
     phase_chain_small(dev)
-    chain_launches = phase_chain_full(dev, smi)
+    phase_chain_full(dev, smi)
+    block_launches = phase_block(dev, smi)
     kernels = []
     for name, (source, replaces, _, _) in KERNELS.items():
         shape = ROW_SHAPES[name]
         ms, plain_ms, bound_ms, bound_by = times[(name, shape)]
         launches = bench_launches[name] if "pallas" in name \
-            else chain_launches[name]
+            else block_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": errs[name], "ms": ms,

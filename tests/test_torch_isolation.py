@@ -70,7 +70,28 @@ def test_port_imports_no_jax():
                  "zk_evm_tpu_torch.tables.cpu",
                  "zk_evm_tpu_torch.tables.keccak_sponge",
                  "zk_evm_tpu_torch.parallel.sharded",
-                 "zk_evm_tpu_torch.bench"):
+                 "zk_evm_tpu_torch.bench",
+                 "zk_evm_tpu_torch.__main__",
+                 "zk_evm_tpu_torch.native",
+                 "zk_evm_tpu_torch.mpt.rlp",
+                 "zk_evm_tpu_torch.mpt.trie",
+                 "zk_evm_tpu_torch.mpt.world",
+                 "zk_evm_tpu_torch.decoder.core",
+                 "zk_evm_tpu_torch.stark.public_values",
+                 "zk_evm_tpu_torch.stark.serialization",
+                 "zk_evm_tpu_torch.witness.kernel",
+                 "zk_evm_tpu_torch.witness.bn254",
+                 "zk_evm_tpu_torch.witness.bls381",
+                 "zk_evm_tpu_torch.witness.native_vm",
+                 "zk_evm_tpu_torch.witness.mpt_load",
+                 "zk_evm_tpu_torch.witness.rlp_inputs",
+                 "zk_evm_tpu_torch.witness.interpreter",
+                 "zk_evm_tpu_torch.witness.traces",
+                 "zk_evm_tpu_torch.witness.segments",
+                 "zk_evm_tpu_torch.witness.testing_fixtures",
+                 "zk_evm_tpu_torch.orchestration.block",
+                 "zk_evm_tpu_torch.orchestration.aggregation",
+                 "zk_evm_tpu_torch.orchestration.pipeline"):
         assert name in out["modules"]
     assert out["loaded"] == []
 
@@ -85,13 +106,17 @@ def test_cpu_calls_launch_no_kernel():
 # `stark/serialization.py`, `tables/logic.py`, `timing.py`) are held to
 # the reference by behaviour in the other test_torch_* files, and so are
 # the table copies (`tests/test_torch_tables.py`), the lookup module
-# (`tests/test_torch_lookup.py`) and the multi-table prover
-# (`tests/test_torch_multi.py`).
+# (`tests/test_torch_lookup.py`), the multi-table prover
+# (`tests/test_torch_multi.py`), the witness generation, tries, fixtures
+# and public values (`tests/test_torch_witness.py`) and the block layer
+# (`tests/test_torch_block.py`).
 VERBATIM_COPIES = [
     "field/host.py", "field/np_field.py", "field/hext.py",
     "hash/poseidon_params.py", "challenger/challenger.py",
     "merkle/host.py", "ntt/host.py", "stark/config.py", "stark/proof.py",
-    "stark/domains.py", "tables/cpu_columns.py",
+    "stark/domains.py", "tables/cpu_columns.py", "tables/cpu.py",
+    "mpt/__init__.py", "mpt/rlp.py", "mpt/world.py",
+    "witness/kernel_constants.json", "data/kernel_eth_mainnet.json.gz",
 ]
 
 

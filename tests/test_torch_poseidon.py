@@ -148,3 +148,14 @@ def test_kernels_on_boundary_states(cuda_device):
         mt = GF.from_u64(np.ascontiguousarray(m.T), cuda_device)
         got = poseidon_dense.sponge_dense(mt).to_u64()
         assert rows(got) == [hp.hash_or_noop([int(v) for v in r]) for r in m]
+
+
+def test_host_permute_native_equals_python():
+    """host_poseidon.permute runs the native library's permutation (the
+    JAX package's dispatch); it equals the pure-python twin and the JAX
+    package's on boundary and random states."""
+    from zk_evm_tpu_torch import native
+    assert native.available()
+    for s in rows(rand_states(32)):
+        want = hp.permute_py(s)
+        assert hp.permute(s) == want == jhp.permute(s)

@@ -4,11 +4,14 @@ the arithmetic used by the host Fiat-Shamir challenger.
 Mirrors the sponge construction the reference proving stack uses for Merkle
 hashing and transcripts (overwrite-mode duplex, rate 8 / capacity 4, 4-element
 digests; cf. zk_evm SURVEY §2.1 "Merkle hashers" and plonky2's PoseidonHash
-usage at /root/reference/evm_arithmetization/src/lib.rs:23).
+usage at zk_evm's evm_arithmetization/src/lib.rs:23).
 """
 
 from __future__ import annotations
 
+import numpy as np
+
+from .. import native
 from ..field import host
 from . import poseidon_params as pp
 
@@ -28,8 +31,15 @@ def _mds(state: list[int], params: pp.PoseidonParams) -> list[int]:
 
 def permute(state: list[int],
             params: pp.PoseidonParams | None = None) -> list[int]:
-    """One Poseidon permutation over a width-12 state of canonical ints
-    (pure python; the JAX package's native C++ dispatch is not ported)."""
+    """One Poseidon permutation over a width-12 state of canonical ints.
+    Dispatches to the native C++ twin when the host library is built
+    (native/zkhost.cpp poseidon_permute_many); permute_py is the exact
+    pure-python ground truth it is tested against."""
+    params = params or pp.default_params()
+    out = native.poseidon_permute_many(np.array([state], dtype=np.uint64),
+                                       params)
+    if out is not None:
+        return [int(v) for v in out[0]]
     return permute_py(state, params)
 
 

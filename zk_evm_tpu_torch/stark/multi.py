@@ -4,8 +4,10 @@ Twin of the JAX package's `stark/multi.py` on the sequential commit path.
 Transcript: all trace caps observed in table order (zero caps for unused
 optional tables), then the public inputs, then the global CTL challenge
 set, then each table proves under the shared sequential challenger (each
-proof snapshots init_challenger_state). The global verifier additionally
-cross-checks the CTL running-sum totals across tables.
+proof snapshots init_challenger_state). A block proof's public inputs are
+its PublicValues' elements (`PublicValues.to_elements()`). The global
+verifier additionally cross-checks the CTL running-sum totals across
+tables.
 """
 
 from __future__ import annotations
@@ -31,9 +33,7 @@ class AllProof:
     proofs: list[StarkProof | None]      # None = table unused (skipped)
     table_in_use: list[bool]
     public_inputs: list[int] = field(default_factory=list)
-    # the block's PublicValues in the JAX package; always None here
-    # until block proofs are ported
-    public_values: None = None
+    public_values: object | None = None  # PublicValues (block proofs)
 
 
 def _zero_cap(config: StarkConfig) -> list[list[int]]:
@@ -49,11 +49,17 @@ def observe_global(challenger: Challenger, caps, public_inputs) -> None:
 def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
               ctls: list[lookup.CrossTableLookup], config: StarkConfig,
               public_inputs: list[int] | None = None,
-              device=None) -> AllProof:
+              public_values=None, device=None) -> AllProof:
     """Prove every in-use table under one transcript, on `device` (CUDA
     when not given). traces[i] may be None for unused optional tables
-    (zero cap observed, no proof)."""
+    (zero cap observed, no proof). `public_values` (a PublicValues)
+    takes the place of raw public_inputs for block proofs: the
+    transcript observes its `to_elements()`."""
     dev = resolve_device(device)
+    if public_values is not None:
+        assert public_inputs is None, \
+            "pass public_values OR raw public_inputs, not both"
+        public_inputs = public_values.to_elements()
     public_inputs = public_inputs or []
     table_in_use = [t is not None for t in traces]
 
@@ -89,7 +95,8 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
                 observe_trace_cap=False, trace_batch=batches[t]))
         batches[t] = None       # free the table's device buffers
     return AllProof(proofs=proofs, table_in_use=table_in_use,
-                    public_inputs=list(public_inputs))
+                    public_inputs=list(public_inputs),
+                    public_values=public_values)
 
 
 def verify_all(starks: list[Stark], all_proof: AllProof,

@@ -1,9 +1,10 @@
-"""Proof (de)serialization: JSON with exact ints, for StarkProof and
-AllProof.
+"""Proof (de)serialization: JSON with exact ints, for StarkProof, AllProof
+and block proofs.
 
 The same JSON as the JAX package's `proof_to_json`: the dataclasses keep
-the JAX package's fields in its order. Block public values are not ported
-yet, so an AllProof's `public_values` is always null."""
+the JAX package's fields in its order, and an AllProof's public values go
+through `public_values_to_dict`. A block proof is the persisted
+`b{height}.zkproof` shape (zero/src/fs.rs:8-12)."""
 
 from __future__ import annotations
 
@@ -13,9 +14,16 @@ import json
 from .fri import (FriProof, FriQueryRound, FriQueryStep, FriInitialProof)
 from .proof import StarkProof, StarkOpeningSet
 from .multi import AllProof
+from .public_values import public_values_to_dict, public_values_from_dict
 
 
 def proof_to_json(proof: StarkProof | AllProof) -> str:
+    if isinstance(proof, AllProof):
+        d = dataclasses.asdict(
+            dataclasses.replace(proof, public_values=None))
+        if proof.public_values is not None:
+            d["public_values"] = public_values_to_dict(proof.public_values)
+        return json.dumps(d)
     return json.dumps(dataclasses.asdict(proof))
 
 
@@ -64,11 +72,48 @@ def stark_proof_from_json(s: str) -> StarkProof:
 
 
 def all_proof_from_json(s: str) -> AllProof:
-    d = json.loads(s)
-    if d.get("public_values") is not None:
-        raise NotImplementedError("block public values: later slice")
+    return all_proof_from_dict(json.loads(s))
+
+
+def all_proof_from_dict(d) -> AllProof:
+    pv = d.get("public_values")
     return AllProof(
         proofs=[stark_proof_from_dict(p) if p is not None else None
                 for p in d["proofs"]],
         table_in_use=list(d["table_in_use"]),
-        public_inputs=list(d["public_inputs"]))
+        public_inputs=list(d["public_inputs"]),
+        public_values=None if pv is None else public_values_from_dict(pv))
+
+
+def block_proof_to_json(bp) -> str:
+    """BlockProof (orchestration/aggregation.py) -> the persisted
+    b{height}.zkproof shape: block statement + FinalPublicValues + all
+    per-batch segment-chain AllProofs."""
+    from ..orchestration.aggregation import FinalPublicValues
+    fin = FinalPublicValues.from_public_values(bp.public_values)
+    return json.dumps({
+        "kind": "block",
+        "block_number": bp.public_values.block_metadata.block_number,
+        "public_values": public_values_to_dict(bp.public_values),
+        "final_public_values": {
+            "chain_id": fin.chain_id,
+            "checkpoint_state_trie_root":
+                fin.checkpoint_state_trie_root.hex(),
+            "new_state_trie_root": fin.new_state_trie_root.hex(),
+            "checkpoint_consolidated_hash":
+                list(fin.checkpoint_consolidated_hash),
+            "new_consolidated_hash": list(fin.new_consolidated_hash),
+        },
+        "batches": [[json.loads(proof_to_json(p)) for p in chain]
+                    for chain in bp.batches],
+    })
+
+
+def block_proof_from_json(s: str):
+    from ..orchestration.aggregation import BlockProof
+    d = json.loads(s)
+    assert d.get("kind") == "block", "not a block proof file"
+    return BlockProof(
+        batches=[[all_proof_from_dict(p) for p in chain]
+                 for chain in d["batches"]],
+        public_values=public_values_from_dict(d["public_values"]))

@@ -536,6 +536,71 @@ def _eval_stack_one(lv, nv, filt, behavior, consumer):
                 - (lv[cc.STACK_LEN] - num_pops + int(pushes))))
 
 
+def cpu_rows_from_run(interp, n_rows=None):
+    """CPU trace from a finished kernel Interpreter run: replays the
+    recorded per-step entries (pc, opcode, is_kernel, context,
+    stack-before, gas, kind); the halt pc is wherever execution
+    stopped.  Returns (trace, CpuStark)."""
+    gl = interp.kernel.global_labels
+    flavor = getattr(interp, "flavor", "eth_mainnet")
+    if getattr(interp, "_nvm", None) is not None:
+        # native fast path: rows built inside the core, straight off the
+        # recorded trace buffers (bit-identical; tests/test_zvm.py)
+        from ..witness import native_vm
+        trace = native_vm.cpu_rows_native(interp, n_rows)
+        n_ops = interp._nvm.trace_len()
+        stark = CpuStark(
+            start_pc=int(trace[cc.PROGRAM_COUNTER, 0]) if n_ops else 0,
+            halt_pc=interp.registers.program_counter,
+            syscall_jumptable=gl.get("syscall_jumptable", 0),
+            exception_jumptable=gl.get("exception_jumptable", 0))
+        return trace, stark
+    ops = []
+    for pc, opcode, kernel, ctx, stack, gas, kind in interp.trace:
+        if kind == "syscall":
+            flag, exc_code = "syscall", None
+        elif isinstance(kind, tuple) and kind[0] == "exception":
+            flag, exc_code = "exception", kind[1]
+        else:
+            flag, exc_code = flag_for(opcode, kernel, flavor), None
+            if flag is None:
+                raise ValueError(
+                    f"executed opcode {opcode:#x} (kernel={kernel}) has "
+                    f"no decode flag at pc {pc}")
+        ops.append((opcode, kernel, flag, pc, stack, ctx, gas, exc_code))
+    halt_pc = interp.registers.program_counter
+    gl = interp.kernel.global_labels
+    stark = CpuStark(start_pc=interp.trace[0][0] if interp.trace else 0,
+                     halt_pc=halt_pc,
+                     syscall_jumptable=gl.get("syscall_jumptable", 0),
+                     exception_jumptable=gl.get("exception_jumptable", 0),
+                     flavor=flavor)
+    trace = build_cpu_rows(
+        ops, n_rows=n_rows, halt_pc=halt_pc,
+        final_gas=interp.registers.gas_used,
+        final_context=interp.registers.context,
+        final_stack_len=interp.registers.stack_len,
+        syscall_jumptable=gl.get("syscall_jumptable", 0),
+        exception_jumptable=gl.get("exception_jumptable", 0),
+        flavor=flavor)
+    return trace, stark
+
+
+def cpu_stark_for_kernel(kernel, flavor: str = "eth_mainnet") -> "CpuStark":
+    """The CpuStark a VERIFIER constructs from the kernel identity alone.
+    A generation run starts at `init` and idles at `halt_final` — the pc
+    the exc_stop epilogue parks on (NOT `halt`, which is the
+    pre-epilogue label recorded in registers_after) — so the halt-module
+    constraints must pin the padding rows there, exactly as the
+    prover-side CpuStark from cpu_rows_from_run does."""
+    gl = kernel.global_labels
+    return CpuStark(start_pc=gl["init"],
+                    halt_pc=gl.get("halt_final", gl["halt"]),
+                    syscall_jumptable=gl.get("syscall_jumptable", 0),
+                    exception_jumptable=gl.get("exception_jumptable", 0),
+                    flavor=flavor)
+
+
 class CpuStark(Stark):
     """CPU table; start_pc/halt_pc are the kernel's `init` and
     `halt_final` label offsets (control_flow.rs:27-38)."""

@@ -266,7 +266,8 @@ def generate_trace_arrays(ops: MemOpsArrays,
     """Array-native trace generation engine (same output contract as
     generate_trace_py). mem_before_values: ((ctx, seg, virt), value)
     pairs written at timestamp 0."""
-    from ..field import host, np_field
+    from ..field import host
+    from .. import native
     parts = [ops]
     if mem_before_values:
         parts.append(_pairs_to_arrays(list(mem_before_values)))
@@ -290,7 +291,7 @@ def generate_trace_arrays(ops: MemOpsArrays,
     ts, ctx, seg, virt, limbs = a.ts, a.ctx, a.seg, a.virt, a.limbs
     trace[FILTER] = a.filter
     trace[TIMESTAMP] = ts
-    trace[TIMESTAMP_INV] = np_field.inv(ts)      # maps 0 to 0
+    trace[TIMESTAMP_INV] = native.gl_batch_inv(ts)
     trace[IS_READ] = a.is_read
     trace[ADDR_CONTEXT], trace[ADDR_SEGMENT], trace[ADDR_VIRTUAL] = \
         ctx, seg, virt

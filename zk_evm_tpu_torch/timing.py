@@ -82,6 +82,17 @@ _ACTIVE: contextvars.ContextVar[TimingTree | None] = \
     contextvars.ContextVar("zk_evm_tpu_torch_timing", default=None)
 
 
+def record(name: str, seconds: float) -> None:
+    """Add a phase measured elsewhere (another thread's work) under the
+    ambient TimingTree's open scope, if a tree is active."""
+    tree = _ACTIVE.get()
+    if tree is not None:
+        tree._stack[-1].children.append(
+            _Node(name, time.perf_counter() - seconds, seconds))
+    logging.getLogger("zk_evm_tpu_torch").info("phase %-40s %8.2fs", name,
+                                               seconds)
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Time a phase under the ambient TimingTree, if one is active.
