@@ -8,7 +8,7 @@ registers and spills as ptxas reported them, and holds each kernel
 against its plain PyTorch version, the python-int host twin and the
 python-int twin of the fast partial-round form the kernels run
 (`hash/poseidon_fast.py`), on random states and on states made of one
-boundary value in every lane. Then it drives three
+boundary value in every lane. Then it drives five
 paths of the port, each with the kernels' launch counts set to 0 just
 before and read just after:
 
@@ -33,6 +33,23 @@ before and read just after:
    same for `add11`, a contract call, in one segment. Then one segment of
    simple-transfer at the test config is proved on the card, and the
    sha256 of its `proof_to_json` must equal the JAX package's.
+5. Recursion: the verifier VM (Rvm, its RAM table and the Poseidon table
+   under one transcript, the Rvm's program in a preprocessed oracle).
+   First a 16-row Fibonacci proof is verified in a tape
+   (`verify_stark_tape`) and the tape proved by `prove_system` on the
+   card: its `proof_to_json` sha256 equals the JAX package's, which
+   tier-1 holds the port's CPU proof to. Then simple-transfer's segment chain at the test config
+   (max_cpu_len_log 14: three segments, the nine tables at their real
+   widths) is proved on the card, verified by the host, and the whole
+   chain verified in one NativeTape (`wrap_segment_chain`, its statement
+   hashed into 4 public inputs by `sponge_hash`; the fixture's statement
+   is not anchored at its checkpoint, so `wrap_block` does not apply).
+   The sha256 of the tape's Rvm and RAM traces must equal the JAX
+   package's. The tape is proved at the standard config, in one proof
+   when its Rvm has at most 2^21 rows, else in chunks
+   (`prove_chunked`), and verified; a wrap proof with one FRI opening
+   changed is rejected, and a child with one public value changed fails
+   while its tape is built.
 
 Field arithmetic is exact, so every comparison is bit-for-bit equality:
 the tolerance is 0. Every phase raises on failure. Needs one CUDA device;
@@ -45,6 +62,8 @@ card's `nvidia-smi` name and power limit, and the result JSON.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import hashlib
 import importlib.util
 import io
@@ -64,12 +83,24 @@ from zk_evm_tpu_torch.challenger import Challenger
 from zk_evm_tpu_torch.field import GF, host
 from zk_evm_tpu_torch.hash import (host_poseidon, poseidon, poseidon_dense,
                                    poseidon_fast, poseidon_pallas)
-from zk_evm_tpu_torch.orchestration.block import prove_block, verify_block
+from zk_evm_tpu_torch.orchestration.aggregation import (
+    aggregate_block, check_checkpoint_block)
+from zk_evm_tpu_torch.orchestration.block import (prove_block, verify_block,
+                                                  verify_segments)
+from zk_evm_tpu_torch.recursion import aggregate as agg
+from zk_evm_tpu_torch.recursion import vm
+from zk_evm_tpu_torch.recursion.continuation import (prove_chunked,
+                                                     verify_chunked)
+from zk_evm_tpu_torch.recursion.system import (RVM, prove_system,
+                                               verify_system)
+from zk_evm_tpu_torch.recursion.tape_lib import sponge_hash
+from zk_evm_tpu_torch.recursion.verify_tape import verify_stark_tape
 from zk_evm_tpu_torch.parallel import commit_cap
-from zk_evm_tpu_torch.stark import (PolynomialBatch, StarkConfig,
-                                    prove_all, prove_stark, verify_all,
-                                    verify_stark)
-from zk_evm_tpu_torch.stark.public_values import public_values_from_dict
+from zk_evm_tpu_torch.stark import (FriConfig, PolynomialBatch, Stark,
+                                    StarkConfig, prove_all, prove_stark,
+                                    verify_all, verify_stark)
+from zk_evm_tpu_torch.stark.public_values import (h256_limbs as pvm_h256,
+                                                  public_values_from_dict)
 from zk_evm_tpu_torch.stark.serialization import proof_to_json
 from zk_evm_tpu_torch.tables import all_stark, logic, memory
 from zk_evm_tpu_torch.tables.memory_chain import (chain_traces,
@@ -106,6 +137,25 @@ KECCAK_LOG_ROWS = 14                        # Keccak's minimum degree
 # tests/test_torch_block.py holds the same constant
 SIMPLE_TRANSFER_TEST_CONFIG_SHA256 = (
     "3902cdd9bd01926e9f362b7c14ea25972b7c1720ad086fc708f06891a3743470")
+# the recursion phase
+WRAP_SEGMENT_LOG = 14                       # simple-transfer: 3 segments
+WRAP_ONE_PROOF_LOG = 21                     # larger Rvm traces are chunked
+WRAP_CHUNK_LOG = 20                         # prove_chunked's rows_log
+FIB_ROWS = 16
+FIB_CHILD_KW = dict(rate_bits=1, cap_height=1, proof_of_work_bits=0,
+                    num_query_rounds=2, arity_bits=2, final_poly_bits=2)
+FIB_OUTER_KW = dict(rate_bits=1, cap_height=2, proof_of_work_bits=0,
+                    num_query_rounds=1, arity_bits=2, final_poly_bits=2)
+# sha256 of the JAX package's proof_to_json(prove_system(...)) of the
+# 16-row Fibonacci wrap at FIB_CHILD_KW / FIB_OUTER_KW, made on the CPU;
+# tests/test_torch_recursion.py holds the same constant
+FIB_WRAP_SHA256 = (
+    "860392d5d51b68ac4d272c054a695026546397c78a3de82d1ca71ca6aa769b7e")
+# sha256 over the Rvm trace's then the RAM trace's bytes of the chain
+# wrap's tape, equal between the packages (the `slow` test of
+# tests/test_torch_recursion.py)
+WRAP_TAPE_SHA256 = (
+    "c23d71573100db0690da7aba22924e3ea69562ab9888fa78d2dfe1e0008997d0")
 # leaf shapes (n_cols, n_rows) of the main paths: the commit benchmark's
 # 2^16-row LDE, the Logic trace's and the Memory trace's LDEs, and the
 # planes sponge's shape in compare_poseidon_layouts
@@ -619,6 +669,220 @@ def phase_block(dev, smi: str) -> dict:
     return launches
 
 
+class FibStark(Stark):
+    """tests/test_stark.py's Fibonacci-with-product AIR: x0, x1, x0*x1."""
+    name = "fib"
+    num_columns = 3
+    num_public_inputs = 3
+
+    def eval(self, frame, cc):
+        x0, x1, prod = frame.local
+        n0, n1, _ = frame.next
+        pi = frame.public_inputs
+        cc.constraint(prod - x0 * x1)
+        cc.constraint_transition(n0 - x1)
+        cc.constraint_transition(n1 - (x0 + x1))
+        cc.constraint_first_row(x0 - pi[0])
+        cc.constraint_first_row(x1 - pi[1])
+        cc.constraint_last_row(x1 - pi[2])
+
+
+def fib_trace(n: int):
+    rows = np.zeros((3, n), dtype=np.uint64)
+    x0, x1 = 1, 2
+    for i in range(n):
+        rows[:, i] = (x0, x1, host.fmul(x0, x1))
+        x0, x1 = x1, host.fadd(x0, x1)
+    return rows, [1, 2, int(rows[1, n - 1])]
+
+
+def tape_sha256(rvm_trace: np.ndarray, ram_trace: np.ndarray) -> str:
+    h = hashlib.sha256(np.ascontiguousarray(rvm_trace).tobytes())
+    h.update(np.ascontiguousarray(ram_trace).tobytes())
+    return h.hexdigest()
+
+
+def phase_wrap_small(dev) -> None:
+    """A 16-row Fibonacci proof verified in a tape; the tape's proof on
+    the card equals the JAX package's, whose sha256 tier-1's
+    tests/test_torch_recursion.py holds the port's CPU proof to as well
+    (the CPU proof takes about 40 s, so it is not made here)."""
+    trace, pis = fib_trace(FIB_ROWS)
+    ccfg = StarkConfig(security_bits=1, fri_config=FriConfig(**FIB_CHILD_KW))
+    ocfg = StarkConfig(security_bits=1, fri_config=FriConfig(**FIB_OUTER_KW))
+    child = prove_stark(FibStark(), trace, ccfg, Challenger(), pis,
+                        device=dev)
+    t = vm.Tape(npub=3)
+    if not isinstance(t, vm.NativeTape):
+        raise AssertionError(f"Tape() gave {type(t).__name__}")
+    for k, c in enumerate(verify_stark_tape(t, FibStark(), child,
+                                            ccfg).public_inputs):
+        t.bind_public(c, k)
+    zero_counts()
+    t0 = time.perf_counter()
+    starks, proof, pub = prove_system(t, ocfg, device=dev)
+    t1 = time.perf_counter()
+    launches = read_counts()
+    for name in ("poseidon_permute", "poseidon_sponge"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched in the "
+                                 f"Fibonacci wrap")
+    digest = hashlib.sha256(proof_to_json(proof).encode()).hexdigest()
+    if digest != FIB_WRAP_SHA256:
+        raise AssertionError(f"Fibonacci wrap sha256 {digest} != the JAX "
+                             f"package's {FIB_WRAP_SHA256}")
+    verify_system(starks, proof, ocfg, expected_public_inputs=pis,
+                  device=dev)
+    log(f"Fibonacci wrap: {len(t.rows)}-op tape; prove_system on the card "
+        f"{t1 - t0:.2f} s, launches {launches}; proof_to_json sha256 == "
+        f"the JAX package's {digest[:8]}… (the CPU proof's in tier-1); "
+        f"verify_system accepts it in {time.perf_counter() - t1:.2f} s")
+
+
+def tampered_opening(proof):
+    """A copy of a 3-table wrap proof with one FRI opening changed: the
+    first query's leaf of the Rvm's witness oracle."""
+    bad = copy.deepcopy(proof)
+    leaves = bad.proofs[RVM].fri_proof.query_rounds[0].initial.leaves
+    leaves[1] = [(int(leaves[1][0]) + 1) % P] + list(leaves[1][1:])
+    return bad
+
+
+def tampered_child(ap):
+    """A copy of a segment proof with block_gas_used + 1 in its public
+    values and its public inputs re-encoded to match."""
+    pv = ap.public_values
+    pv = dataclasses.replace(pv, block_metadata=dataclasses.replace(
+        pv.block_metadata,
+        block_gas_used=pv.block_metadata.block_gas_used + 1))
+    return dataclasses.replace(ap, public_values=pv,
+                               public_inputs=pv.to_elements())
+
+
+def phase_wrap(dev, smi: str) -> dict:
+    """simple-transfer's segment chain verified in one tape and the tape
+    proved at the standard config; returns the dense kernels' launches
+    while proving the tape."""
+    kernel = combined_kernel()
+    cfg = StarkConfig.test_config()
+    proofs = []
+    t0 = time.perf_counter()
+    for _seg, gt in generate_segment_tables(
+            kernel, FIXTURES["simple-transfer"](),
+            max_cpu_len_log=WRAP_SEGMENT_LOG):
+        proofs.append(prove_block(gt, cfg, device=dev))
+    t1 = time.perf_counter()
+    if len(proofs) < 2:
+        raise AssertionError(f"{len(proofs)} segment(s), expected >= 2")
+    bp = aggregate_block([proofs], kernel, cfg, device=dev)
+    t2 = time.perf_counter()
+    stmt = bp.public_values
+    log(f"wrap: simple-transfer, {len(proofs)} segments at the test config "
+        f"(max_cpu_len_log {WRAP_SEGMENT_LOG}) proved on the card in "
+        f"{t1 - t0:.2f} s (witness included); host aggregate_block (every "
+        f"segment verified) {t2 - t1:.2f} s [{smi}]")
+    try:
+        check_checkpoint_block(stmt)
+        log("wrap: the block statement is anchored at its checkpoint")
+    except AssertionError as e:
+        log(f"wrap: the block statement fails check_checkpoint_block ({e});"
+            f" the chain is wrapped alone, its statement hashed into 4 "
+            f"public inputs")
+
+    t = vm.Tape(npub=4)
+    if not isinstance(t, vm.NativeTape):
+        raise AssertionError(f"Tape() gave {type(t).__name__}")
+    t0 = time.perf_counter()
+    pub_cells, _, _ = agg.wrap_segment_chain(t, proofs, kernel, cfg,
+                                             device=dev)
+    for k, c in enumerate(sponge_hash(t, pub_cells)):
+        t.bind_public(c, k)
+    build_s = time.perf_counter() - t0
+    want = host_poseidon.hash_no_pad([int(v)
+                                      for v in proofs[0].public_inputs])
+    if t.public_inputs != want:
+        raise AssertionError("wrap statement digest != host hash_no_pad")
+    value = [t.value(c) for c in pub_cells]
+    md = stmt.block_metadata
+    if (value[agg.MD_NUMBER] != md.block_number
+            or value[agg.MD_CHAIN_ID] != md.block_chain_id
+            or value[agg.TRA:agg.TRA + 8] != pvm_h256(
+                stmt.trie_roots_after.state_root)):
+        raise AssertionError("wrap cells != aggregate_block's statement")
+    t0 = time.perf_counter()
+    stark, rvm_trace, ram_trace, pose_ops, _ = t.finalize()
+    digest = tape_sha256(rvm_trace, ram_trace)
+    log(f"wrap tape: {len(t.rows)} ops built in {build_s:.2f} s (host); "
+        f"Rvm {rvm_trace.shape}, RvmMem {ram_trace.shape}, Poseidon "
+        f"{len(pose_ops)} permutations; finalized in "
+        f"{time.perf_counter() - t0:.2f} s; block number "
+        f"{md.block_number}, chain id {md.block_chain_id} and new state "
+        f"root equal aggregate_block's; tape sha256 {digest}")
+    if WRAP_TAPE_SHA256 is not None and digest != WRAP_TAPE_SHA256:
+        raise AssertionError(f"wrap tape sha256 != the JAX package's "
+                             f"{WRAP_TAPE_SHA256}")
+    del stark, rvm_trace, ram_trace, pose_ops
+
+    std = StarkConfig.standard_fast_config()
+    chunked = len(t.rows) > 1 << WRAP_ONE_PROOF_LOG
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    tree = TimingTree("prove wrap")
+    with tree:
+        if chunked:
+            chunks, proven, pub = prove_chunked(t, std, WRAP_CHUNK_LOG,
+                                                device=dev)
+        else:
+            starks, proof, pub = prove_system(t, std, device=dev)
+    launches = read_counts()
+    for name in ("poseidon_permute", "poseidon_sponge"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched in the wrap")
+    how = (f"{len(chunks)} chunks of 2^{WRAP_CHUNK_LOG} ops" if chunked
+           else "one proof")
+    log(f"wrap proved at the standard config, {how} [{smi}]:")
+    print_tree(tree)
+    log(f"  {tree.root.elapsed:9.3f} s  total; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    t0 = time.perf_counter()
+    if chunked:
+        verify_chunked(chunks, proven, std, expected_public_inputs=want,
+                       device=dev)
+        bad_all = list(proven)
+        bad_all[0] = (proven[0][0], tampered_opening(proven[0][1]))
+        reject = lambda: verify_chunked(chunks, bad_all, std, device=dev)
+    else:
+        verify_system(starks, proof, std, expected_public_inputs=want,
+                      device=dev)
+        bad = tampered_opening(proof)
+        reject = lambda: verify_system(starks, bad, std, device=dev)
+    t1 = time.perf_counter()
+    try:
+        reject()
+    except AssertionError as e:
+        if "Merkle" not in str(e):
+            raise
+    else:
+        raise AssertionError("a wrap proof with a changed FRI opening "
+                             "verified")
+    t2 = time.perf_counter()
+    try:
+        agg.wrap_segment_chain(vm.Tape(npub=4),
+                               [tampered_child(proofs[0])] + proofs[1:],
+                               kernel, cfg, device=dev)
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("a child with a changed public value wrapped")
+    log(f"wrap verified in {t1 - t0:.2f} s (host); a changed FRI opening "
+        f"rejected in {t2 - t1:.2f} s; a child with block_gas_used + 1 "
+        f"failed while its tape was built in "
+        f"{time.perf_counter() - t2:.2f} s")
+    return launches
+
+
 # the shape each kernel's row of the kernels line reports: the PoW grind
 # batch, the block's widest leaves (Keccak), the commit benchmark's leaves
 ROW_SHAPES = {
@@ -645,6 +909,10 @@ def main() -> None:
     phase_chain_small(dev)
     phase_chain_full(dev, smi)
     block_launches = phase_block(dev, smi)
+    phase_wrap_small(dev)
+    wrap_launches = phase_wrap(dev, smi)
+    log(f"dense launches: simple-transfer block {block_launches}, chain "
+        f"wrap {wrap_launches}")
     kernels = []
     for name, (source, replaces, _, _) in KERNELS.items():
         shape = ROW_SHAPES[name]

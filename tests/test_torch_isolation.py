@@ -91,7 +91,19 @@ def test_port_imports_no_jax():
                  "zk_evm_tpu_torch.witness.testing_fixtures",
                  "zk_evm_tpu_torch.orchestration.block",
                  "zk_evm_tpu_torch.orchestration.aggregation",
-                 "zk_evm_tpu_torch.orchestration.pipeline"):
+                 "zk_evm_tpu_torch.orchestration.pipeline",
+                 "zk_evm_tpu_torch.stark.debug",
+                 "zk_evm_tpu_torch.tables.poseidon",
+                 "zk_evm_tpu_torch.tables.scenarios",
+                 "zk_evm_tpu_torch.recursion",
+                 "zk_evm_tpu_torch.recursion.known",
+                 "zk_evm_tpu_torch.recursion.ram",
+                 "zk_evm_tpu_torch.recursion.vm",
+                 "zk_evm_tpu_torch.recursion.tape_lib",
+                 "zk_evm_tpu_torch.recursion.verify_tape",
+                 "zk_evm_tpu_torch.recursion.system",
+                 "zk_evm_tpu_torch.recursion.continuation",
+                 "zk_evm_tpu_torch.recursion.aggregate"):
         assert name in out["modules"]
     assert out["loaded"] == []
 
@@ -108,8 +120,11 @@ def test_cpu_calls_launch_no_kernel():
 # the table copies (`tests/test_torch_tables.py`), the lookup module
 # (`tests/test_torch_lookup.py`), the multi-table prover
 # (`tests/test_torch_multi.py`), the witness generation, tries, fixtures
-# and public values (`tests/test_torch_witness.py`) and the block layer
-# (`tests/test_torch_block.py`).
+# and public values (`tests/test_torch_witness.py`), the block layer
+# (`tests/test_torch_block.py`), the Poseidon table
+# (`tests/test_torch_poseidon_table.py`), the sponge scenario
+# (`tests/test_torch_scenarios.py`) and the recursion modules that pass a
+# device or require the native tape core (`tests/test_torch_recursion.py`).
 VERBATIM_COPIES = [
     "field/host.py", "field/np_field.py", "field/hext.py",
     "hash/poseidon_params.py", "challenger/challenger.py",
@@ -117,6 +132,8 @@ VERBATIM_COPIES = [
     "stark/domains.py", "tables/cpu_columns.py", "tables/cpu.py",
     "mpt/__init__.py", "mpt/rlp.py", "mpt/world.py",
     "witness/kernel_constants.json", "data/kernel_eth_mainnet.json.gz",
+    "stark/debug.py", "recursion/known.py", "recursion/ram.py",
+    "recursion/tape_lib.py",
 ]
 
 

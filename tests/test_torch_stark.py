@@ -127,16 +127,26 @@ class RangeStark(Stark):
 
 
 def test_lookups_refused():
-    """Lookups and CTLs are proved now; a table with preprocessed columns
-    is still refused, and a one-lookup table's CPU proof equals the JAX
-    package's."""
+    """Lookups, CTLs and preprocessed columns are proved now: a table
+    that declares preprocessed columns without a program is refused, one
+    with its program proves and verifies (byte-identity with the JAX
+    package: tests/test_torch_scenarios.py), and a one-lookup table's CPU
+    proof equals the JAX package's."""
+    trace, pis = fib_trace(8)
+
     class WithPreprocessed(FibStark):
         num_preprocessed = 1
-    trace, pis = fib_trace(8)
+
+    class WithProgram(WithPreprocessed):
+        def preprocessed(self):
+            return trace[:1]
     cfg, jcfg = _cfgs(0)
-    with pytest.raises(NotImplementedError, match="preprocessed columns"):
+    with pytest.raises(AssertionError):
         prove_stark(WithPreprocessed(), trace, cfg, Challenger(), pis,
                     device="cpu")
+    proof = prove_stark(WithProgram(), trace, cfg, Challenger(), pis,
+                        device="cpu")
+    verify_stark(WithProgram(), proof, cfg, Challenger(), device="cpu")
     rtrace = range_trace(32)
     proof = prove_stark(RangeStark(), rtrace, cfg, Challenger(),
                         device="cpu")

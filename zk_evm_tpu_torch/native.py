@@ -1,5 +1,6 @@
 """ctypes bindings for the native host library (the repository's native/
-zkhost.cpp, tapecore.cpp and zvm.cpp).
+zkhost.cpp, tapecore.cpp and zvm.cpp): host hashing, the batch inverse,
+the Poseidon table's witness and the verifier VM's tape core.
 
 The JAX package's loader runs `make -C native`; this one compiles the
 same sources with g++, at first use, into `build/native/` at the root of
@@ -68,10 +69,57 @@ def _load():
         lib.poseidon_permute_many.argtypes = [
             u64p, u64p, u64p, ctypes.c_uint64, ctypes.c_uint64,
             u64p, ctypes.c_uint64]
+        lib.poseidon_witness_batch.argtypes = [
+            u64p, u64p, u64p, ctypes.c_uint64, ctypes.c_uint64,
+            u64p, ctypes.c_uint64, u64p, u64p, u64p, u64p]
+        _bind_tape(lib, u64p)
         _lib = lib
     except (OSError, RuntimeError, subprocess.SubprocessError) as e:
         _lib, _load_error = False, e
     return _lib
+
+
+def _bind_tape(lib, u64p) -> None:
+    """The tape core's entry points (recursion/vm.py NativeTape)."""
+    h = ctypes.c_void_p
+    i64, u64 = ctypes.c_int64, ctypes.c_uint64
+    lib.tape_new.restype = h
+    lib.tape_new.argtypes = [u64, u64p, u64, u64p, u64p, u64, u64]
+    lib.tape_free.argtypes = [h]
+    for f in ("tape_load", "tape_const"):
+        getattr(lib, f).restype = i64
+        getattr(lib, f).argtypes = [h, u64]
+    lib.tape_arith.restype = i64
+    lib.tape_arith.argtypes = [h, i64, i64, i64, u64, u64, u64]
+    lib.tape_sel.restype = i64
+    lib.tape_sel.argtypes = [h, i64, i64, i64]
+    lib.tape_assert_eq.restype = i64
+    lib.tape_assert_eq.argtypes = [h, i64, i64]
+    lib.tape_pose.restype = i64
+    lib.tape_pose.argtypes = [h, ctypes.POINTER(i64)]
+    lib.tape_bind_public.restype = i64
+    lib.tape_bind_public.argtypes = [h, i64, u64]
+    lib.tape_value.restype = u64
+    lib.tape_value.argtypes = [h, i64]
+    for f in ("tape_n_rows", "tape_n_alloc", "tape_n_pose"):
+        getattr(lib, f).restype = u64
+        getattr(lib, f).argtypes = [h]
+    lib.tape_get_publics.restype = u64
+    lib.tape_get_publics.argtypes = [h, u64p]
+    lib.tape_export_trace.argtypes = [h, u64, u64, u64p, u64]
+    lib.tape_count_pose.restype = u64
+    lib.tape_count_pose.argtypes = [h, u64, u64]
+    lib.tape_export_pose.argtypes = [h, u64, u64, u64p]
+    lib.tape_live_at.restype = u64
+    lib.tape_live_at.argtypes = [h, i64, ctypes.c_void_p, ctypes.c_void_p]
+    lib.tape_count_ops.restype = u64
+    lib.tape_count_ops.argtypes = [h, u64, u64]
+    lib.tape_export_ops.argtypes = [h, u64, u64, u64p]
+    lib.tape_ram_size.restype = u64
+    lib.tape_ram_size.argtypes = [h, u64, u64, u64p, u64, u64]
+    lib.tape_ram_fill.restype = u64
+    lib.tape_ram_fill.argtypes = [h, u64, u64, u64p, u64, u64,
+                                  u64p, u64, u64p, u64]
 
 
 def require():
@@ -145,3 +193,23 @@ def poseidon_permute_many(states: np.ndarray, params):
     lib.poseidon_permute_many(rc, circ, diag, hf, npart, states,
                               states.shape[0])
     return states
+
+
+def poseidon_witness_batch(states: np.ndarray, params):
+    """Per-permutation AIR witness: (round_states (n, n_rounds*12),
+    cubes_full (n, 2*half_full*12), cubes_partial (n, n_partial),
+    pinv (n, 4)). None when the library is absent."""
+    lib = _load()
+    if not lib or params.width != 12 or params.sbox_exp != 7:
+        return None
+    rc, circ, diag, hf, npart = _poseidon_tables(params)
+    states = np.ascontiguousarray(states, dtype=np.uint64)
+    n = states.shape[0]
+    n_rounds = 2 * hf + npart
+    rs = np.empty((n, n_rounds * 12), dtype=np.uint64)
+    cf = np.empty((n, 2 * hf * 12), dtype=np.uint64)
+    cp = np.empty((n, npart), dtype=np.uint64)
+    pinv = np.empty((n, 4), dtype=np.uint64)
+    lib.poseidon_witness_batch(rc, circ, diag, hf, npart, states, n,
+                               rs, cf, cp, pinv)
+    return rs, cf, cp, pinv

@@ -17,10 +17,11 @@ Host twin of the reference's recursive-aggregation public-value algebra
 Every check here is replayed structurally over verified segment
 AllProofs. Copy of the JAX package's `orchestration/aggregation.py` with
 `device` passed through to the segment prover and the initial-cap
-commitment. The links between blocks (the parent-block and checkpoint
-checks of `verify_block_chain`), the decoder path's checkpoint
-restamping, the bounded multi-block loop and the two-to-one mix wait
-for the decoder and recursion: the port proves one block at a time.
+commitment. The checkpoint check and `FinalPublicValues.to_elements`
+are what the recursion wrap (`recursion/aggregate.py`) is held to. The
+parent-block link of `verify_block_chain`, the decoder path's
+checkpoint restamping, the bounded multi-block loop and the two-to-one
+mix wait for the decoder: the port proves one block at a time.
 """
 
 from __future__ import annotations
@@ -116,6 +117,20 @@ def check_block_initial(pv: PublicValues) -> None:
         "header gas_used must equal the final gas counter"
 
 
+def check_checkpoint_block(pv: PublicValues) -> None:
+    """A block with no parent proof anchors at the checkpoint: its
+    pre-state root IS the checkpoint root and the consolidated hash of
+    its 256 previous block hashes matches the claimed checkpoint
+    consolidation (connect_checkpoint_block, :1965-1996)."""
+    e = pv.extra_block_data
+    assert pv.trie_roots_before.state_root == \
+        e.checkpoint_state_trie_root, \
+        "checkpoint block pre-state root != checkpoint root"
+    assert tuple(e.checkpoint_consolidated_hash) == \
+        consolidate_hashes(list(pv.block_hashes.prev_hashes)), \
+        "checkpoint consolidated hash mismatch"
+
+
 # ---------------------------------------------------------------------------
 # Block proof object + FinalPublicValues
 # ---------------------------------------------------------------------------
@@ -149,6 +164,13 @@ class FinalPublicValues:
                 pv.extra_block_data.checkpoint_consolidated_hash),
             new_consolidated_hash=consolidate_hashes(payload),
         )
+
+    def to_elements(self) -> list[int]:
+        return [self.chain_id] \
+            + h256_limbs(self.checkpoint_state_trie_root) \
+            + h256_limbs(self.new_state_trie_root) \
+            + list(self.checkpoint_consolidated_hash) \
+            + list(self.new_consolidated_hash)
 
 
 def aggregate_block(batch_chains: list[list], kernel,

@@ -113,15 +113,33 @@ def _fold_once(values: GFE, beta: GFE, x_inv: GF) -> GFE:
     return s + d * beta
 
 
-def _g_accumulate(g: GFE, lde_sel: GF, awa: GF, awb: GF,
+# LDE elements weighted at once: a batch's selected rows are combined in
+# groups this large, so the limb temporaries of the product stay a few GiB
+# however many columns a batch opens at a 2^22-point coset
+G_GROUP_ELEMENTS = 1 << 26
+
+
+def _g_accumulate(g: GFE, sels: list, awa: GF, awb: GF,
                   y: GFE, z: GFE, xs: GF) -> GFE:
     """g += (sum_t alpha^t P_t(x) - y) / (x - z) for one opening batch.
 
-    lde_sel: (T, m) selected polys; awa/awb: (T,) alpha-power limbs;
-    y, z: scalar GFE; xs: (m,) domain points."""
-    m = lde_sel.shape[-1]
-    ra = (lde_sel * awa.reshape(-1, 1)).sum(axis=0)
-    rb = (lde_sel * awb.reshape(-1, 1)).sum(axis=0)
+    sels: [(lde (rows, m), row indices)] in entry order; awa/awb: (T,)
+    alpha-power limbs over all selected rows; y, z: scalar GFE; xs: (m,)
+    domain points. The sums run a group of rows at a time (field sums are
+    exact, so the grouping changes no bit)."""
+    m = xs.shape[-1]
+    step = max(1, G_GROUP_ELEMENTS // m)
+    ra = rb = None
+    t = 0
+    for lde, idxs in sels:
+        for k in range(0, len(idxs), step):
+            rows = lde.take(np.asarray(idxs[k:k + step]), axis=0)
+            n = rows.shape[0]
+            pa = (rows * awa[t:t + n].reshape(-1, 1)).sum(axis=0)
+            pb = (rows * awb[t:t + n].reshape(-1, 1)).sum(axis=0)
+            ra = pa if ra is None else ra + pa
+            rb = pb if rb is None else rb + pb
+            t += n
     num = GFE(ra, rb) - y
     denom = GFE(xs, GF.zeros((m,), xs.device)) - z
     return g + num * denom.inv()
@@ -186,13 +204,12 @@ def prove_fri(oracles: list[PolynomialBatch],
             while j < len(batch.entries) and batch.entries[j][0] == oi:
                 idxs.append(batch.entries[j][1])
                 j += 1
-            sels.append(oracles[oi].lde.take(np.array(idxs), axis=0))
+            sels.append((oracles[oi].lde, idxs))
             i = j
-        lde_sel = sels[0] if len(sels) == 1 else GF.concatenate(sels, axis=0)
         awa = GF.from_u64(np.array([a for a, _ in aps], dtype=np.uint64), dev)
         awb = GF.from_u64(np.array([b for _, b in aps], dtype=np.uint64), dev)
         g_vals = _g_accumulate(
-            g_vals, lde_sel, awa, awb, GFE.const(y[0], y[1], device=dev),
+            g_vals, sels, awa, awb, GFE.const(y[0], y[1], device=dev),
             GFE.const(z[0], z[1], device=dev), xs)
 
     # ---- commit phase ---------------------------------------------------

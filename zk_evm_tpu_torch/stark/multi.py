@@ -49,12 +49,19 @@ def observe_global(challenger: Challenger, caps, public_inputs) -> None:
 def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
               ctls: list[lookup.CrossTableLookup], config: StarkConfig,
               public_inputs: list[int] | None = None,
-              public_values=None, device=None) -> AllProof:
+              public_values=None,
+              table_public_inputs: dict[int, list[int]] | None = None,
+              device=None) -> AllProof:
     """Prove every in-use table under one transcript, on `device` (CUDA
     when not given). traces[i] may be None for unused optional tables
     (zero cap observed, no proof). `public_values` (a PublicValues)
     takes the place of raw public_inputs for block proofs: the
-    transcript observes its `to_elements()`."""
+    transcript observes its `to_elements()`.
+    `table_public_inputs[t]` feeds table t's per-proof public inputs
+    (e.g. the Rvm's PUB bindings) without re-observing them: the global
+    observation already covers them when the caller passes the same
+    values in `public_inputs`. A table's preprocessed columns are
+    committed in their own oracle, not with its trace."""
     dev = resolve_device(device)
     if public_values is not None:
         assert public_inputs is None, \
@@ -71,11 +78,10 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
             batches.append(None)
             caps.append(_zero_cap(config))
             continue
-        if stark.num_preprocessed:
-            raise NotImplementedError("preprocessed columns: later slice")
         with timed(f"commit {stark.name} trace"):
             b = PolynomialBatch.from_values(
-                GF.from_u64(trace, dev), rate_bits=config.rate_bits,
+                GF.from_u64(trace[stark.num_preprocessed:], dev),
+                rate_bits=config.rate_bits,
                 cap_height=config.cap_height, hasher=config.hasher)
         batches.append(b)
         caps.append(b.cap_ints())
@@ -91,6 +97,7 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
         with timed(f"prove {stark.name} {trace.shape}"):
             proofs.append(prove_stark(
                 stark, trace, config, challenger,
+                public_inputs=(table_public_inputs or {}).get(t),
                 challenges=challenges, ctl_groups=groups,
                 observe_trace_cap=False, trace_batch=batches[t]))
         batches[t] = None       # free the table's device buffers
@@ -101,16 +108,23 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
 
 def verify_all(starks: list[Stark], all_proof: AllProof,
                ctls: list[lookup.CrossTableLookup], config: StarkConfig,
+               extra_looking_sums: dict[int, list[int]] | None = None,
                extra_looking_values: dict[int, list] | None = None,
-               optional_tables: tuple[int, ...] = ()) -> None:
+               optional_tables: tuple[int, ...] = (),
+               device=None) -> None:
     """Verify every table proof under the replayed transcript, then check
-    every CTL's global sum: sum of looking totals (+ the logUp sums of
-    `extra_looking_values`) == looked total.
+    every CTL's global sum: sum of looking totals (+ extra looking sums,
+    keyed by CTL index, one value per challenge) == looked total.
 
     `extra_looking_values` maps a CTL index to raw value rows the
     VERIFIER contributes (e.g. the memory table's public-value writes);
     their logUp sums are computed here under the derived challenges —
-    callers cannot inject arbitrary sums.
+    callers cannot inject arbitrary sums. `extra_looking_sums` is for
+    lower-level harnesses that derive the sums themselves (the sponge
+    scenario's CPU-side dispatch, `tables/scenarios.py`).
+
+    A table with preprocessed columns has its program cap recomputed on
+    `device` (CUDA when not given); no other table needs a device.
 
     `optional_tables` are the only table indices allowed to omit a proof;
     every other table MUST carry one — otherwise an all-None AllProof
@@ -128,7 +142,7 @@ def verify_all(starks: list[Stark], all_proof: AllProof,
     observe_global(challenger, caps, all_proof.public_inputs)
     challenges = lookup.get_challenge_set(challenger, config.num_challenges)
 
-    extra_looking_sums = {}
+    extra_looking_sums = dict(extra_looking_sums or {})
     for ci, rows in (extra_looking_values or {}).items():
         sums = []
         for beta, gamma in challenges.pairs:
@@ -142,6 +156,7 @@ def verify_all(starks: list[Stark], all_proof: AllProof,
                     gp = host.fmul(gp, gamma)
                 s = host.fadd(s, host.finv(host.fadd(beta, combined)))
             sums.append(s)
+        assert ci not in extra_looking_sums
         extra_looking_sums[ci] = sums
 
     for t, (stark, proof) in enumerate(zip(starks, all_proof.proofs)):
@@ -150,7 +165,7 @@ def verify_all(starks: list[Stark], all_proof: AllProof,
         groups = lookup.ctl_groups_for_table(ctls, t)
         verify_stark(stark, proof, config, challenger,
                      challenges=challenges, ctl_groups=groups,
-                     observe_trace_cap=False)
+                     observe_trace_cap=False, device=device)
 
     # ---- global CTL sum check ------------------------------------------
     totals = _collect_ctl_totals(all_proof, ctls, challenges)

@@ -4,7 +4,9 @@ The device (CUDA unless the caller passes `device="cpu"`) does all O(n)
 and larger work: commitments (NTT + Merkle), aux-column generation
 (batched inverses and exact suffix sums), whole-LDE constraint
 evaluation, quotient interpolation, FRI. The host does transcript
-sequencing only. Tables with preprocessed columns are refused.
+sequencing only. A table's preprocessed (program) columns take the low
+column indices and are committed in an oracle of their own, whose cap
+is a constant of the verification key.
 """
 
 from __future__ import annotations
@@ -96,7 +98,8 @@ def _quotient_chunks(stark: Stark, trace_batch: PolynomialBatch,
                      aux_batch: PolynomialBatch | None,
                      lookups, groups, challenges,
                      alphas: list[int], config: StarkConfig,
-                     public_inputs: list[int]) -> GF:
+                     public_inputs: list[int],
+                     pre_batch: PolynomialBatch | None = None) -> GF:
     """Evaluate the constraint composition over the LDE coset and return
     quotient chunk coefficients, shape (num_challenges << rate_bits, n).
 
@@ -109,6 +112,9 @@ def _quotient_chunks(stark: Stark, trace_batch: PolynomialBatch,
     log_m = degree_bits + rate_bits
     m = 1 << log_m
     lde = trace_batch.lde                       # (cols, m) bitrev
+    if pre_batch is not None:
+        # preprocessed (program) columns occupy the low indices
+        lde = GF.concatenate([pre_batch.lde, lde], axis=0)
     dev = lde.device
     perm = domains.next_row_perm_bitrev(log_m, rate_bits)
     sel = selector_tables(degree_bits, rate_bits, dev)
@@ -151,8 +157,6 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
     observes every cap globally, draws the shared CTL challenge set, and
     passes `challenges`, `ctl_groups`, `observe_trace_cap=False` and
     `trace_batch` in; the proof then runs on that batch's device."""
-    if stark.num_preprocessed:
-        raise NotImplementedError("preprocessed columns: later slice")
     public_inputs = public_inputs or []
     groups = list(ctl_groups or [])
     lookups = stark.lookups()
@@ -161,11 +165,12 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
     assert 1 << degree_bits == n
     assert trace.shape[0] == stark.num_columns
     fri_cfg = config.fri_config
+    npre = stark.num_preprocessed
 
     if trace_batch is None:
         with timed("commit trace"):
             trace_batch = PolynomialBatch.from_values(
-                GF.from_u64(trace, resolve_device(device)),
+                GF.from_u64(trace[npre:], resolve_device(device)),
                 rate_bits=config.rate_bits,
                 cap_height=config.cap_height, hasher=config.hasher)
     elif device is not None and not same_device(device,
@@ -173,6 +178,11 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
         raise ValueError(f"device {device} differs from the trace batch's "
                          f"{trace_batch.lde.device}")
     trace_cap = trace_batch.cap_ints()
+    pre_batch = stark.preprocessed_batch(config, trace_batch.lde.device)
+    assert (pre_batch is None) == (npre == 0)
+    if pre_batch is not None:
+        assert np.array_equal(stark.preprocessed(), trace[:npre]), \
+            "trace's program columns deviate from stark.preprocessed()"
 
     init_state = challenger.compact()
     if observe_trace_cap:
@@ -180,6 +190,10 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
         # bind single-table public inputs into the transcript (the
         # AllStark layer observes them globally instead)
         challenger.observe_elements(public_inputs)
+    if pre_batch is not None:
+        # the program cap is part of the verification key; observing it
+        # domain-separates transcripts of different programs
+        challenger.observe_cap(pre_batch.cap_ints())
 
     # 1. lookup/CTL challenges + aux commitment
     aux_batch = None
@@ -191,7 +205,11 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
         with timed("generate aux columns"):
             trace_gf = trace_batch.values
             if trace_gf is None:
-                trace_gf = GF.from_u64(trace, trace_batch.lde.device)
+                trace_gf = GF.from_u64(trace[npre:], trace_batch.lde.device)
+            if pre_batch is not None:
+                # the aux columns see the whole trace, program included
+                trace_gf = GF.concatenate([pre_batch.values, trace_gf],
+                                          axis=0)
             aux_gf = lookup.generate_aux_trace(trace_gf, lookups, groups,
                                                challenges)
         with timed("commit aux"):
@@ -206,7 +224,7 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
     with timed("evaluate quotient"):
         chunks = _quotient_chunks(stark, trace_batch, aux_batch, lookups,
                                   groups, challenges, alphas, config,
-                                  public_inputs)
+                                  public_inputs, pre_batch=pre_batch)
     with timed("commit quotient"):
         quotient_batch = PolynomialBatch.from_coeffs(
             chunks, rate_bits=config.rate_bits,
@@ -221,6 +239,11 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
     with timed("openings"):
         t_open = trace_batch.open_at([zeta, zeta_next])
         q_open = quotient_batch.open_at([zeta])
+        pre_local, pre_next = [], []
+        if pre_batch is not None:
+            p_open = pre_batch.open_at([zeta, zeta_next])
+            pre_local = [tuple(map(int, v)) for v in p_open[0]]
+            pre_next = [tuple(map(int, v)) for v in p_open[1]]
         aux_local_open, aux_next_open, ctl_zs_first = [], [], []
         z_idxs: list[int] = []
         if aux_batch is not None:
@@ -233,18 +256,25 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
                 assert b == 0, "CTL Z opening at x=1 must be base-field"
                 ctl_zs_first.append(a)
     openings = StarkOpeningSet(
-        trace_local=[tuple(map(int, v)) for v in t_open[0]],
-        trace_next=[tuple(map(int, v)) for v in t_open[1]],
+        trace_local=pre_local + [tuple(map(int, v)) for v in t_open[0]],
+        trace_next=pre_next + [tuple(map(int, v)) for v in t_open[1]],
         aux_local=aux_local_open, aux_next=aux_next_open,
         ctl_zs_first=ctl_zs_first,
         quotient=[tuple(map(int, v)) for v in q_open[0]])
     challenger.observe_elements(openings.observe_order())
 
-    # 4. FRI batched opening proof (oracle order: [trace, aux?, quotient])
+    # 4. FRI batched opening proof (oracle order: [pre?, trace, aux?, q])
     alpha = challenger.get_extension_challenge()
-    oracles = [trace_batch]
-    zeta_entries = [(0, i) for i in range(trace_batch.num_polys)]
-    next_entries = list(zeta_entries)
+    oracles = []
+    zeta_entries, next_entries = [], []
+    if pre_batch is not None:
+        oracles.append(pre_batch)
+        zeta_entries += [(0, i) for i in range(npre)]
+        next_entries += [(0, i) for i in range(npre)]
+    tidx = len(oracles)
+    oracles.append(trace_batch)
+    zeta_entries += [(tidx, i) for i in range(trace_batch.num_polys)]
+    next_entries += [(tidx, i) for i in range(trace_batch.num_polys)]
     zeta_values = list(openings.trace_local)
     next_values = list(openings.trace_next)
     if aux_batch is not None:

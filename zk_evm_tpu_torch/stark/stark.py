@@ -113,20 +113,41 @@ class StackingConsumer(ConstraintConsumer):
             return
         self._stack.append(cs.reshape(-1, cs.shape[-1]))
 
+    # elements folded at once: a group of stacked rows this large is
+    # multiplied by its weights and summed before the next is concatenated,
+    # so the fold's limb temporaries stay a few GiB at a 2^22-point coset
+    FOLD_GROUP_ELEMENTS = 1 << 26
+
     def finalize(self) -> None:
-        """Compute accs from the stacked constraints. Idempotent."""
+        """Compute accs from the stacked constraints, a group of rows at a
+        time (field sums are exact, so the grouping changes no bit).
+        Idempotent."""
         if not self._stack:
             return
-        cs = GF.concatenate(self._stack, axis=0)
-        self._stack = []
-        k = cs.shape[0]
-        new_accs = []
-        for alpha in self.alphas:
-            w = np_field.powers(alpha, k)[::-1].copy()
-            wgf = GF.from_u64(w.reshape(k, 1), cs.device)
-            # acc0 is zero by construction (fresh consumer per quotient)
-            new_accs.append((cs * wgf).sum(axis=0))
-        self.accs = new_accs
+        stack, self._stack = self._stack, []
+        k = sum(c.shape[0] for c in stack)
+        m = stack[0].shape[-1]
+        weights = [np_field.powers(alpha, k)[::-1].copy()
+                   for alpha in self.alphas]
+        # acc0 is zero by construction (fresh consumer per quotient)
+        accs = [None] * len(self.alphas)
+        row = 0
+        while stack:
+            group = [stack.pop(0)]
+            while stack and (sum(c.shape[0] for c in group)
+                             + stack[0].shape[0]) * m \
+                    <= self.FOLD_GROUP_ELEMENTS:
+                group.append(stack.pop(0))
+            cs = GF.concatenate(group, axis=0) if len(group) > 1 \
+                else group[0]
+            del group
+            n = cs.shape[0]
+            for i, w in enumerate(weights):
+                wgf = GF.from_u64(w[row:row + n].reshape(n, 1), cs.device)
+                part = (cs * wgf).sum(axis=0)
+                accs[i] = part if accs[i] is None else accs[i] + part
+            row += n
+        self.accs = accs
 
 
 class Stark:
@@ -149,9 +170,45 @@ class Stark:
     def proof_params(self) -> tuple:
         return tuple(getattr(self, n) for n in self.proof_param_names)
 
-    # Preprocessed (program) columns: committed in their own oracle in the
-    # JAX package; the port proves tables without them so far.
+    def known_columns(self):
+        """Columns whose values are fixed by data the verifier holds.
+        The verifier recomputes their openings at zeta/zeta*g
+        barycentrically (recursion/known.py) and asserts equality,
+        binding the committed polynomials to the known data. Prefer
+        `preprocessed()` (cap-constant binding, recursable)."""
+        return {}
+
+    # -- preprocessed (program) oracle ------------------------------------
+    # The first `num_preprocessed` columns of the trace are fixed by data
+    # the verifier holds (the Rvm's program). They are committed in their
+    # OWN oracle whose Merkle cap is a constant of the verification key:
+    # the verifier (and the recursion tape) bind openings to that cap via
+    # FRI alone.
     num_preprocessed: int = 0
+
+    def preprocessed(self):
+        """(num_preprocessed, n) uint64 values, or None."""
+        return None
+
+    def preprocessed_batch(self, config, device=None):
+        """Commit the preprocessed columns on `device` (CUDA when not
+        given), once per (program, config, device)."""
+        pre = self.preprocessed()
+        if pre is None:
+            return None
+        from .prover import resolve_device
+        dev = resolve_device(device)
+        key = ("_pre_batch", config.rate_bits, config.cap_height,
+               config.hasher, str(dev))
+        cached = getattr(self, "_pre_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        from .poly_batch import PolynomialBatch
+        batch = PolynomialBatch.from_values(
+            GF.from_u64(pre, dev), rate_bits=config.rate_bits,
+            cap_height=config.cap_height, hasher=config.hasher)
+        self._pre_cache = (key, batch)
+        return batch
 
     def requires_ctls(self):
         return False

@@ -2,8 +2,9 @@
 
 Independent implementation of the checks — shares no device code with the
 prover, mirroring the reference's verify_stark_proof_with_challenges path,
-lookups and cross-table lookups included. Tables with preprocessed columns
-come in a later slice."""
+lookups and cross-table lookups included. A table's preprocessed
+(program) columns are bound through FRI by the cap the verifier commits
+from the program itself; known columns by their recomputed openings."""
 
 from __future__ import annotations
 
@@ -20,16 +21,17 @@ def verify_stark(stark: Stark, proof: StarkProof, config: StarkConfig,
                  challenges: lookup.ChallengeSet | None = None,
                  ctl_groups=None,
                  observe_trace_cap: bool = True,
-                 expected_public_inputs: list[int] | None = None) -> None:
+                 expected_public_inputs: list[int] | None = None,
+                 device=None) -> None:
     """Raises AssertionError on any failure. `challenger` must be at the
     same transcript position as the prover's on entry.
 
     Single-table mode (observe_trace_cap=True) observes the proof's
     public inputs in the transcript, binding them to every challenge; in
     AllStark mode the caller observes them globally. Callers with an
-    expectation pass `expected_public_inputs`."""
-    if stark.num_preprocessed:
-        raise NotImplementedError("preprocessed columns: later slice")
+    expectation pass `expected_public_inputs`. The program cap of a table
+    with preprocessed columns is committed on `device` (CUDA when not
+    given)."""
     fri_cfg = config.fri_config
     degree_bits = proof.degree_bits
     n = 1 << degree_bits
@@ -50,10 +52,19 @@ def verify_stark(stark: Stark, proof: StarkProof, config: StarkConfig,
     for cap in (proof.trace_cap, proof.quotient_cap):
         assert len(cap) == cap_len, "cap size mismatch"
 
+    npre = stark.num_preprocessed
+    pre_batch = stark.preprocessed_batch(config, device) if npre else None
+    assert (pre_batch is None) == (npre == 0)
+    pre_cap = pre_batch.cap_ints() if pre_batch is not None else None
+
     challenger.compact()
     if observe_trace_cap:
         challenger.observe_cap(proof.trace_cap)
         challenger.observe_elements(proof.public_inputs)
+    if pre_cap is not None:
+        # verification-key constant: the verifier computes this cap from
+        # the program itself, binding the preprocessed oracle via FRI
+        challenger.observe_cap(pre_cap)
     if has_aux:
         if challenges is None:
             challenges = lookup.get_challenge_set(
@@ -76,6 +87,20 @@ def verify_stark(stark: Stark, proof: StarkProof, config: StarkConfig,
     zeta = challenger.get_extension_challenge()
     g = host.primitive_root_of_unity(degree_bits)
     zeta_next = host.emul(zeta, (g, 0))
+
+    # ---- known (program) columns: bind openings to the known values -----
+    known = stark.known_columns()
+    if known:
+        from ..recursion.known import eval_known_at
+        cache: dict = {}
+        for c, vals in known.items():
+            assert len(vals) == n, "known column length mismatch"
+            assert tuple(ops.trace_local[c]) == \
+                eval_known_at(vals, zeta, cache), \
+                f"known column {c} opening mismatch at zeta"
+            assert tuple(ops.trace_next[c]) == \
+                eval_known_at(vals, zeta_next, cache), \
+                f"known column {c} opening mismatch at zeta*g"
 
     # ---- constraint identity at zeta -----------------------------------
     z_last, l_first, l_last, zh = domains.selectors_at_point(
@@ -104,14 +129,23 @@ def verify_stark(stark: Stark, proof: StarkProof, config: StarkConfig,
         rhs = rhs * HExt(zh)
         assert acc == rhs, f"constraint identity failed (challenge {i})"
 
-    # ---- FRI (oracle order: [trace, aux?, quotient]) ---------------------
+    # ---- FRI (oracle order: [pre?, trace, aux?, quotient]) ---------------
     challenger.observe_elements(ops.observe_order())
     alpha = challenger.get_extension_challenge()
-    num_wit = stark.num_columns
-    oracle_caps = [proof.trace_cap]
-    oracle_widths = [num_wit]
-    zeta_entries = [(0, i) for i in range(num_wit)]
-    next_entries = list(zeta_entries)
+    num_wit = stark.num_columns - npre
+    oracle_caps = []
+    oracle_widths = []
+    zeta_entries, next_entries = [], []
+    if pre_cap is not None:
+        oracle_caps.append(pre_cap)
+        oracle_widths.append(npre)
+        zeta_entries += [(0, i) for i in range(npre)]
+        next_entries += [(0, i) for i in range(npre)]
+    tidx = len(oracle_caps)
+    oracle_caps.append(proof.trace_cap)
+    oracle_widths.append(num_wit)
+    zeta_entries += [(tidx, i) for i in range(num_wit)]
+    next_entries += [(tidx, i) for i in range(num_wit)]
     zeta_values = list(ops.trace_local)
     next_values = list(ops.trace_next)
     if has_aux:
