@@ -2,15 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the four hand-written CUDA Poseidon kernels from zk_evm_tpu_torch/
-csrc/ (one nvcc per source, started together), logs each kernel's
-registers and spills as ptxas reported them, and holds each kernel
-against its plain PyTorch version, the python-int host twin and the
-python-int twin of the fast partial-round form the kernels run
-(`hash/poseidon_fast.py`), on random states and on states made of one
-boundary value in every lane. Then it drives five
-paths of the port, each with the kernels' launch counts set to 0 just
-before and read just after:
+Builds the four hand-written CUDA Poseidon kernels and the keccak256
+rows kernel from zk_evm_tpu_torch/csrc/ (one nvcc per source, started
+together), logs each kernel's registers and spills as ptxas reported
+them, and holds each Poseidon kernel against its plain PyTorch version,
+the python-int host twin and the python-int twin of the fast
+partial-round form the kernels run (`hash/poseidon_fast.py`), on random
+states and on states made of one boundary value in every lane. Then it
+drives seven paths of the port, each with the kernels' launch counts set
+to 0 just before and read just after:
 
 1. LogicStark: a 2^12-row proof on CUDA equals the CPU proof byte for
    byte; a 2^16-row, 523-column LogicStark is proved at the standard
@@ -23,7 +23,25 @@ before and read just after:
    rows the CUDA `proof_to_json` equals the CPU one; at full width
    (786,432 preinitialized words, every table 2^20 rows) it is proved at
    the standard config and verified by the port's `verify_all`.
-4. An Ethereum block, through the port's command line
+4. The Keccak commitment config (StarkConfig.hasher="keccak"): the
+   keccak256 rows kernel (csrc/keccak.cu) against its plain version, the
+   numpy batch hasher and native keccak256 at widths 3, 5, 17, 34 and 523
+   (rows of one boundary value each among them), on 2^18 compress pairs
+   and on a whole 64 x 2^16 tree against `build_tree_keccak`'s cap, with
+   its times; "keccak_host" (the numpy tree) refuses leaves on the card;
+   a 2^12-row LogicStark proved under "keccak" on CUDA equals
+   the CPU proof; LogicStark 2^16 and the 2^20-row memory chain are
+   proved under "keccak" at the standard config and verified, with the
+   Keccak kernel launched and the Poseidon sponge not.
+5. The cdk_erigon table set: `build_cdk_poseidon_scenario`'s ten-table
+   AllStark (the Poseidon coprocessor driven by cdk CPU rows, its three
+   CTLs and 56 byte reads) proved on the card at the test config equals
+   the CPU proof, and its sha256 the JAX package's; the scenario with a
+   7-block POSEIDON_GENERAL (an 8-row Poseidon table, the fewest the
+   standard config's height-4 cap takes) is proved on the card at the
+   standard config and verified; a wrong memory byte and a wrong digest
+   are rejected.
+6. An Ethereum block, through the port's command line
    (`zk_evm_tpu_torch.__main__.main`, in this process): `prove --fixture
    simple-transfer --max-cpu-len-log 15` at the standard config runs the
    witness generation (the native VM core, built from native/ with g++),
@@ -33,7 +51,7 @@ before and read just after:
    same for `add11`, a contract call, in one segment. Then one segment of
    simple-transfer at the test config is proved on the card, and the
    sha256 of its `proof_to_json` must equal the JAX package's.
-5. Recursion: the verifier VM (Rvm, its RAM table and the Poseidon table
+7. Recursion: the verifier VM (Rvm, its RAM table and the Poseidon table
    under one transcript, the Rvm's program in a preprocessed oracle).
    First a 16-row Fibonacci proof is verified in a tape
    (`verify_stark_tape`) and the tape proved by `prove_system` on the
@@ -81,8 +99,12 @@ from zk_evm_tpu_torch import bench, cuda_build, native, poseidon_ab
 from zk_evm_tpu_torch.bench import cuda_ms, random_gf
 from zk_evm_tpu_torch.challenger import Challenger
 from zk_evm_tpu_torch.field import GF, host
-from zk_evm_tpu_torch.hash import (host_poseidon, poseidon, poseidon_dense,
-                                   poseidon_fast, poseidon_pallas)
+from zk_evm_tpu_torch.hash import (host_poseidon, keccak_device, keccak_np,
+                                   poseidon, poseidon_dense, poseidon_fast,
+                                   poseidon_pallas)
+from zk_evm_tpu_torch.merkle import build_commitment_tree, keccak_host
+from zk_evm_tpu_torch.merkle.keccak_tree import (_digest_reduce,
+                                                 build_tree_keccak)
 from zk_evm_tpu_torch.orchestration.aggregation import (
     aggregate_block, check_checkpoint_block)
 from zk_evm_tpu_torch.orchestration.block import (prove_block, verify_block,
@@ -102,9 +124,12 @@ from zk_evm_tpu_torch.stark import (FriConfig, PolynomialBatch, Stark,
 from zk_evm_tpu_torch.stark.public_values import (h256_limbs as pvm_h256,
                                                   public_values_from_dict)
 from zk_evm_tpu_torch.stark.serialization import proof_to_json
-from zk_evm_tpu_torch.tables import all_stark, logic, memory
+from zk_evm_tpu_torch.tables import all_stark, cpu_columns as cc, logic, \
+    memory
 from zk_evm_tpu_torch.tables.memory_chain import (chain_traces,
                                                   preinitialized_words)
+from zk_evm_tpu_torch.tables.scenarios import build_cdk_poseidon_scenario
+from zk_evm_tpu_torch.tables.segments import Segment
 from zk_evm_tpu_torch.timing import TimingTree, timed
 from zk_evm_tpu_torch.witness import native_vm
 from zk_evm_tpu_torch.witness.interpreter import Interpreter
@@ -165,20 +190,45 @@ LEAF_SHAPES = ((COMMIT_POLYS, 2 << COMMIT_LOG_ROWS),
                (KECCAK_COLUMNS, 2 << KECCAK_LOG_ROWS),
                (64, 1 << 14))
 BOUNDARY = (0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63)
+# the Keccak phases: the kernel at these widths (Logic's leaves the widest)
+# and as a compress level; then LogicStark and the memory chain proved
+# under hasher="keccak"
+KECCAK_WIDTHS = (3, 5, 17, 34, logic.NUM_COLUMNS)
+KECCAK_CHECK_ROWS = 4096
+KECCAK_PAIRS_LOG = 18
+KECCAK_TREE_SHAPE = (COMMIT_POLYS, 1 << 16)  # (columns, leaves)
+KECCAK_BOUNDARY = BOUNDARY + ((1 << 64) - 1,)
+# the cdk_erigon scenario (tables/scenarios.py) at tests/test_cdk_flavor.py's
+# config, and the sha256 of the JAX package's proof_to_json of it, made on
+# the CPU; tests/test_torch_cdk.py holds the same constant
+CDK_CFG_KW = dict(rate_bits=1, cap_height=2, proof_of_work_bits=0,
+                  num_query_rounds=1, arity_bits=2, final_poly_bits=2)
+CDK_SCENARIO_SHA256 = (
+    "10d286ea5b1baf5a5dbd237ec15b0bfe1fc1a02007221a8a1d764ecef4301260")
 KERNELS = {
-    # name: (source, replaced TPU kernel, wrapper, launch-count key)
+    # name: (source, replaced TPU kernel, wrapper, launch counts, key)
     "poseidon_permute": ("zk_evm_tpu_torch/csrc/poseidon.cu",
                          "zk_evm_tpu/hash/poseidon_dense.py:143",
-                         poseidon_dense.permute_dense, "permute"),
+                         poseidon_dense.permute_dense,
+                         poseidon_dense.LAUNCHES, "permute"),
     "poseidon_sponge": ("zk_evm_tpu_torch/csrc/poseidon.cu",
                         "zk_evm_tpu/hash/poseidon_dense.py:203",
-                        poseidon_dense.sponge_dense, "sponge"),
+                        poseidon_dense.sponge_dense,
+                        poseidon_dense.LAUNCHES, "sponge"),
     "poseidon_pallas_permute": ("zk_evm_tpu_torch/csrc/poseidon_pallas.cu",
                                 "zk_evm_tpu/hash/poseidon_pallas.py:182",
-                                poseidon_pallas.permute_pallas, "permute"),
+                                poseidon_pallas.permute_pallas,
+                                poseidon_pallas.LAUNCHES, "permute"),
     "poseidon_pallas_sponge": ("zk_evm_tpu_torch/csrc/poseidon_pallas.cu",
                                "zk_evm_tpu/hash/poseidon_pallas.py:250",
-                               poseidon_pallas.sponge_pallas, "sponge"),
+                               poseidon_pallas.sponge_pallas,
+                               poseidon_pallas.LAUNCHES, "sponge"),
+    # plain XLA in the JAX package (`_keccak_rows` under jax.jit), not
+    # Pallas: it is written for the card all the same
+    "keccak_rows": ("zk_evm_tpu_torch/csrc/keccak.cu",
+                    "zk_evm_tpu/hash/keccak_device.py:88",
+                    keccak_device.keccak_rows, keccak_device.LAUNCHES,
+                    "rows"),
 }
 PERMUTES = ("poseidon_permute", "poseidon_pallas_permute")
 SPONGES = ("poseidon_sponge", "poseidon_pallas_sponge")
@@ -237,7 +287,7 @@ def sm_clock_mhz() -> float:
 
 
 def phase_build() -> None:
-    names = ("poseidon", "poseidon_pallas")
+    names = ("poseidon", "poseidon_pallas", "keccak")
     how = {n: "reused" if cuda_build.library_path(n).exists()
            else "built with nvcc" for n in names}
     t0 = time.perf_counter()
@@ -249,22 +299,22 @@ def phase_build() -> None:
     for n in names:
         resources = cuda_build.kernel_resources(cuda_build.ptxas_report(n))
         for mangled, res in resources.items():
-            log(f"ptxas {poseidon_ab.kernel_of(mangled)}: "
+            kernel = poseidon_ab.kernel_of(mangled) or next(
+                (k for k in KERNELS if f"{k}_kernel" in mangled), mangled)
+            log(f"ptxas {kernel}: "
                 f"{res['registers']} registers, spill stores "
                 f"{res['spill_stores']} bytes, spill loads "
                 f"{res['spill_loads']} bytes")
 
 
 def zero_counts() -> None:
-    for counts in (poseidon_dense.LAUNCHES, poseidon_pallas.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    for _, _, _, counts, key in KERNELS.values():
+        counts[key] = 0
 
 
 def read_counts() -> dict:
-    return {name: (poseidon_pallas if "pallas" in name
-                   else poseidon_dense).LAUNCHES[key]
-            for name, (_, _, _, key) in KERNELS.items()}
+    return {name: counts[key]
+            for name, (_, _, _, counts, key) in KERNELS.items()}
 
 
 def phase_permute(rng, dev) -> dict:
@@ -400,6 +450,91 @@ def phase_kernel_times(rng, dev, smi: str, clock_mhz: float) -> dict:
     return rows
 
 
+def keccak_host_rows(rows: np.ndarray) -> np.ndarray:
+    """keccak256 digests of (n, width) u64 rows by the numpy batch hasher,
+    limbs made canonical (merkle/keccak_tree.py)."""
+    n, width = rows.shape
+    return _digest_reduce(keccak_np.keccak256_batch(
+        np.ascontiguousarray(rows).view(np.uint8).reshape(n, width * 8)))
+
+
+def phase_keccak(rng, dev, smi: str, clock_mhz: float):
+    """The keccak256 rows kernel against its plain version, the numpy
+    batch hasher and the scalar native keccak256 (exact): rows read
+    through the LDE's transposed layout at KECCAK_WIDTHS, the first rows
+    each of one boundary value; a compress level of 2^KECCAK_PAIRS_LOG
+    pairs; a whole Keccak tree against build_tree_keccak's cap. Then its
+    times at Logic's leaves and at the compress level. Returns
+    (max_abs_err, {shape: (ms, plain_ms, bound_ms, bound_by)})."""
+    err = 0
+    uniform = np.array(KECCAK_BOUNDARY, dtype=np.uint64)[None, :]
+    for width in KECCAK_WIDTHS:
+        m = rng.integers(0, 2**64, size=(width, KECCAK_CHECK_ROWS),
+                         dtype=np.uint64)
+        m[:, :uniform.shape[1]] = uniform       # row r: one value, all words
+        x = GF.from_u64(m, dev).T              # (rows, width) as lde.T
+        got = keccak_device.keccak_rows(x)
+        err = max(err, max_abs_err(got, keccak_device.keccak_rows_plain(x)))
+        out = got.to_u64()
+        if err or not np.array_equal(out, keccak_host_rows(m.T)):
+            raise AssertionError(f"keccak kernel != plain or numpy at width "
+                                 f"{width}")
+        for r in range(uniform.shape[1] + 1):
+            raw = native.keccak256(m[:, r].astype("<u8").tobytes())
+            if [int(v) for v in out[r]] != keccak_host._to_digest(raw):
+                raise AssertionError(f"keccak kernel row {r} != native "
+                                     f"keccak256 at width {width}")
+    level = random_gf(rng, (2 << KECCAK_PAIRS_LOG, 4), dev)
+    got = keccak_device.compress(level)
+    err = max(err, max_abs_err(got, keccak_device.compress_plain(level)))
+    if err or not np.array_equal(got.to_u64(), keccak_host_rows(
+            level.to_u64().reshape(-1, 8))):
+        raise AssertionError("keccak compress != plain or numpy")
+    cols, leaves = KECCAK_TREE_SHAPE
+    m = rng.integers(0, P, size=(cols, leaves), dtype=np.uint64)
+    tree = build_commitment_tree(GF.from_u64(m, dev).T, 4, "keccak")
+    if not np.array_equal(tree.cap_u64(),
+                          build_tree_keccak(m.T, 4).cap_u64()):
+        raise AssertionError("keccak device tree cap != build_tree_keccak")
+    try:
+        build_commitment_tree(GF.from_u64(m, dev).T, 4, "keccak_host")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError('hasher="keccak_host" took leaves on the card')
+    log(f"keccak: kernel == plain == numpy == native keccak256 (exact) at "
+        f"widths {KECCAK_WIDTHS} x {KECCAK_CHECK_ROWS} rows (boundary "
+        f"values {KECCAK_BOUNDARY}), 2^{KECCAK_PAIRS_LOG} compress pairs; a "
+        f"{cols} x 2^{leaves.bit_length() - 1} tree's cap == "
+        f"build_tree_keccak's")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"keccak bound: {bench.INT_OPS_PER_KECCAK} logic instructions a "
+        f"permutation over {sms} SMs x {bench.INT_OPS_PER_SM_CLOCK} a clock "
+        f"x {clock_mhz:.0f} MHz; bytes over {bench.HBM_BYTES_S / 1e12:.2f} "
+        f"TB/s")
+    rows = {}
+    # Logic's leaves as the prover hands them over (lde.T), and a compress
+    # level as compress reads it (the digests' contiguous (n, 8) view)
+    for shape, transposed in (((2 << LOGIC_LOG_ROWS, logic.NUM_COLUMNS),
+                               True),
+                              ((1 << KECCAK_PAIRS_LOG, 8), False)):
+        n, width = shape
+        x = random_gf(rng, (width, n), dev).T if transposed \
+            else random_gf(rng, shape, dev)
+        want, plain_ms = once_ms(lambda: keccak_device.keccak_rows_plain(x))
+        if max_abs_err(keccak_device.keccak_rows(x), want):
+            raise AssertionError(f"keccak kernel != plain at {shape}")
+        ms = cuda_ms(lambda: keccak_device.keccak_rows(x), reps=10)
+        bound_ms, bound_by = bench.keccak_bound_ms(
+            *bench.keccak_work(n, width), clock_mhz, sms)
+        rows[shape] = (ms, plain_ms, bound_ms, bound_by)
+        log(f"keccak_rows {shape}: kernel == plain; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
+            f"[{smi}]")
+    return err, rows
+
+
 def logic_trace(rng, log_rows: int) -> np.ndarray:
     n = 1 << log_rows
     ops = [(("and", "or", "xor")[int(k)],
@@ -409,9 +544,9 @@ def logic_trace(rng, log_rows: int) -> np.ndarray:
     return logic.generate_trace(ops, min_rows=n)
 
 
-def phase_logic_small(rng, dev) -> None:
+def phase_logic_small(rng, dev, hasher: str = "poseidon") -> None:
     trace = logic_trace(rng, LOGIC_CHECK_LOG_ROWS)
-    cfg = StarkConfig.test_config()
+    cfg = dataclasses.replace(StarkConfig.test_config(), hasher=hasher)
     stark = logic.LogicStark()
     t0 = time.perf_counter()
     on_gpu = proof_to_json(prove_stark(stark, trace, cfg, Challenger(),
@@ -421,9 +556,10 @@ def phase_logic_small(rng, dev) -> None:
                                        device="cpu"))
     t2 = time.perf_counter()
     if on_gpu != on_cpu:
-        raise AssertionError("LogicStark: CUDA proof != CPU proof")
-    log(f"LogicStark 2^{LOGIC_CHECK_LOG_ROWS} test config: CUDA proof == "
-        f"CPU proof "
+        raise AssertionError(f"LogicStark, hasher {hasher}: CUDA proof != "
+                             f"CPU proof")
+    log(f"LogicStark 2^{LOGIC_CHECK_LOG_ROWS} test config, hasher {hasher}: "
+        f"CUDA proof == CPU proof "
         f"({len(on_gpu)} bytes; CUDA {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s)")
 
 
@@ -436,9 +572,23 @@ def print_tree(tree: TimingTree) -> None:
         walk(node, 0)
 
 
-def phase_logic_full(rng, dev, smi: str) -> dict:
+def check_launches(launches: dict, hasher: str, what: str) -> None:
+    """The kernels a proof under `hasher` launches: the Poseidon permute
+    (the proof-of-work grind, and the tree levels under Poseidon) and the
+    leaf hash of its trees; under Keccak, never the Poseidon sponge."""
+    leaf = "poseidon_sponge" if hasher == "poseidon" else "keccak_rows"
+    for name in ("poseidon_permute", leaf):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched in {what}")
+    if hasher != "poseidon" and launches["poseidon_sponge"]:
+        raise AssertionError(f"the Poseidon sponge launched in {what} under "
+                             f"hasher {hasher}")
+
+
+def phase_logic_full(rng, dev, smi: str, hasher: str = "poseidon") -> dict:
     trace = logic_trace(rng, LOGIC_LOG_ROWS)
-    cfg = StarkConfig.standard_fast_config()
+    cfg = dataclasses.replace(StarkConfig.standard_fast_config(),
+                              hasher=hasher)
     stark = logic.LogicStark()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -454,10 +604,8 @@ def phase_logic_full(rng, dev, smi: str) -> dict:
     launches = read_counts()
     if batch.lde.device.type != "cuda":
         raise AssertionError(f"trace LDE on {batch.lde.device}, not cuda")
-    for name in ("poseidon_permute", "poseidon_sponge"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} kernel never launched in the prove")
-    log(f"LogicStark 2^{LOGIC_LOG_ROWS} standard config, "
+    check_launches(launches, hasher, f"LogicStark under {hasher}")
+    log(f"LogicStark 2^{LOGIC_LOG_ROWS} standard config, hasher {hasher}, "
         f"{len(proof.fri_proof.query_rounds)} queries, pow witness "
         f"{proof.fri_proof.pow_witness} [{smi}]:")
     print_tree(tree)
@@ -478,8 +626,8 @@ def phase_bench(smi: str) -> dict:
     bench.main()
     bench.compare_poseidon_layouts()
     launches = read_counts()
-    for name, n in launches.items():
-        if n <= 0:
+    for name in PERMUTES + SPONGES:            # the Poseidon kernels it runs
+        if launches[name] <= 0:
             raise AssertionError(f"{name} kernel never launched in the "
                                  f"benchmark")
     log(f"bench: main() and compare_poseidon_layouts() in "
@@ -511,7 +659,7 @@ def phase_chain_small(dev) -> None:
         f"{t2 - t1:.2f} s)")
 
 
-def phase_chain_full(dev, smi: str) -> dict:
+def phase_chain_full(dev, smi: str, hasher: str = "poseidon") -> dict:
     t0 = time.perf_counter()
     traces, starks, ctls, optional = chain_inputs(CHAIN_WORDS)
     in_use = {name: traces[getattr(all_stark.Table, name)].shape
@@ -522,19 +670,17 @@ def phase_chain_full(dev, smi: str) -> dict:
         if shape[1] != 1 << CHAIN_LOG_ROWS:
             raise AssertionError(f"chain trace {shape}, not 2^"
                                  f"{CHAIN_LOG_ROWS} rows")
-    cfg = StarkConfig.standard_fast_config()
+    cfg = dataclasses.replace(StarkConfig.standard_fast_config(),
+                              hasher=hasher)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    tree = TimingTree("prove memory chain")
+    tree = TimingTree(f"prove memory chain, hasher {hasher}")
     with tree:
         proof = prove_all(starks, traces, ctls, cfg, device=dev)
     launches = read_counts()
-    for name in ("poseidon_permute", "poseidon_sponge"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} kernel never launched in the "
-                                 f"memory chain")
-    log(f"memory chain 2^{CHAIN_LOG_ROWS} standard config "
+    check_launches(launches, hasher, f"the memory chain under {hasher}")
+    log(f"memory chain 2^{CHAIN_LOG_ROWS} standard config, hasher {hasher} "
         f"(tables in order Memory, MemBefore, MemAfter) [{smi}]:")
     print_tree(tree)
     log(f"  {tree.root.elapsed:9.3f} s  total; peak device memory "
@@ -542,9 +688,105 @@ def phase_chain_full(dev, smi: str) -> dict:
         f"{launches}")
     t0 = time.perf_counter()
     verify_all(starks, proof, ctls, cfg, optional_tables=optional)
-    log(f"memory chain verified by the port's verify_all in "
+    log(f"memory chain ({hasher}) verified by the port's verify_all in "
         f"{time.perf_counter() - t0:.2f} s")
     return launches
+
+
+def cdk_inputs(mutate=None, general_blocks: int = 1):
+    """The cdk_erigon scenario's traces (changed by `mutate`), starks,
+    CTLs and optional tables."""
+    traces, cpu_stark = build_cdk_poseidon_scenario(general_blocks)
+    if mutate is not None:
+        mutate(traces)
+    starks = all_stark.all_starks("cdk_erigon")
+    starks[all_stark.Table.Cpu] = cpu_stark
+    optional = tuple(i for i, t in enumerate(traces) if t is None)
+    return traces, starks, all_stark.all_cross_table_lookups("cdk_erigon"), \
+        optional
+
+
+def wrong_memory_byte(traces) -> None:
+    """Flip a byte the Poseidon coprocessor reads from Memory."""
+    mtrace = traces[all_stark.Table.Memory]
+    rows = np.nonzero(mtrace[memory.ADDR_SEGMENT]
+                      == int(Segment.KernelGeneral))[0]
+    mtrace[memory.VALUE_COLS[0], int(rows[0])] ^= 1
+
+
+def wrong_digest(traces) -> None:
+    """Change the CPU's claimed simple digest (next row's stack top)."""
+    traces[all_stark.Table.Cpu][cc.MEM_CHANNELS[0].value[0], 1] ^= 1
+
+
+def phase_cdk(dev, smi: str) -> None:
+    """The cdk_erigon table set: the Poseidon coprocessor scenario, its
+    ten tables under one transcript, proved on the card."""
+    traces, starks, ctls, optional = cdk_inputs()
+    names = {v: k for k, v in vars(all_stark.Table).items()
+             if isinstance(v, int)}
+    shapes = {names[i]: t.shape for i, t in enumerate(traces)
+              if t is not None}
+    cfg = StarkConfig(security_bits=1, fri_config=FriConfig(**CDK_CFG_KW))
+    zero_counts()
+    t0 = time.perf_counter()
+    proof = prove_all(starks, traces, ctls, cfg, device=dev)
+    t1 = time.perf_counter()
+    launches = read_counts()
+    check_launches(launches, "poseidon", "the cdk scenario")
+    on_gpu = proof_to_json(proof)
+    on_cpu = proof_to_json(prove_all(starks, traces, ctls, cfg,
+                                     device="cpu"))
+    t2 = time.perf_counter()
+    if on_gpu != on_cpu:
+        raise AssertionError("cdk scenario: CUDA proof != CPU proof")
+    digest = hashlib.sha256(on_gpu.encode()).hexdigest()
+    if digest != CDK_SCENARIO_SHA256:
+        raise AssertionError(f"cdk scenario sha256 {digest} != the JAX "
+                             f"package's {CDK_SCENARIO_SHA256}")
+    verify_all(starks, proof, ctls, cfg, optional_tables=optional)
+    log(f"cdk_erigon scenario {shapes}, test config: proved on the card in "
+        f"{t1 - t0:.2f} s (CPU {t2 - t1:.2f} s), launches {launches}; CUDA "
+        f"proof == CPU proof, sha256 == the JAX package's {digest[:8]}…; "
+        f"verify_all accepts it in {time.perf_counter() - t2:.2f} s [{smi}]")
+    # the standard config commits no table under 8 rows (a height-4 cap
+    # at rate 2^-1): a 7-block POSEIDON_GENERAL fills an 8-row Poseidon
+    # table with real rows
+    std = StarkConfig.standard_fast_config()
+    traces, starks, ctls, optional = cdk_inputs(general_blocks=7)
+    shapes = {names[i]: t.shape for i, t in enumerate(traces)
+              if t is not None}
+    short = {name: shape[1] for name, shape in shapes.items()
+             if shape[1] << std.rate_bits < 1 << std.cap_height}
+    if short:
+        raise AssertionError(f"cdk scenario: {short} rows are too few for "
+                             f"the standard config")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = prove_all(starks, traces, ctls, std, device=dev)
+    t1 = time.perf_counter()
+    launches = read_counts()
+    check_launches(launches, "poseidon", "the standard-config cdk scenario")
+    verify_all(starks, proof, ctls, std, optional_tables=optional)
+    log(f"cdk_erigon scenario with a 7-block POSEIDON_GENERAL {shapes}, "
+        f"standard config ({std.fri_config.num_query_rounds} queries, cap "
+        f"height {std.cap_height}): proved on the card in {t1 - t0:.2f} s, "
+        f"launches {launches}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; verify_all "
+        f"accepts it in {time.perf_counter() - t1:.2f} s (a correctness "
+        f"check at toy size, not a measurement of a cdk block) [{smi}]")
+    for what, mutate in (("a wrong memory byte", wrong_memory_byte),
+                         ("a wrong digest", wrong_digest)):
+        traces, starks, ctls, optional = cdk_inputs(mutate)
+        bad = prove_all(starks, traces, ctls, cfg, device=dev)
+        try:
+            verify_all(starks, bad, ctls, cfg, optional_tables=optional)
+        except AssertionError:
+            log(f"cdk_erigon scenario with {what}: proved on the card, "
+                f"rejected by verify_all")
+        else:
+            raise AssertionError(f"the cdk scenario with {what} verified")
 
 
 def run_cli(argv: list) -> tuple:
@@ -884,8 +1126,10 @@ def phase_wrap(dev, smi: str) -> dict:
 
 
 # the shape each kernel's row of the kernels line reports: the PoW grind
-# batch, the block's widest leaves (Keccak), the commit benchmark's leaves
+# batch, the block's widest leaves (Keccak), the commit benchmark's
+# leaves; for the Keccak hasher, Logic's leaves (2^17 rows of 523 words)
 ROW_SHAPES = {
+    "keccak_rows": (2 << LOGIC_LOG_ROWS, logic.NUM_COLUMNS),
     "poseidon_permute": (PERMUTE_BATCHES[-1],),
     "poseidon_sponge": (KECCAK_COLUMNS, 2 << KECCAK_LOG_ROWS),
     "poseidon_pallas_permute": (PERMUTE_BATCHES[-1],),
@@ -908,16 +1152,27 @@ def main() -> None:
     bench_launches = phase_bench(smi)
     phase_chain_small(dev)
     phase_chain_full(dev, smi)
+    keccak_err, keccak_times = phase_keccak(rng, dev, smi, clock)
+    phase_logic_small(rng, dev, "keccak")
+    phase_logic_full(rng, dev, smi, "keccak")
+    keccak_launches = phase_chain_full(dev, smi, "keccak")
+    phase_cdk(dev, smi)
     block_launches = phase_block(dev, smi)
     phase_wrap_small(dev)
     wrap_launches = phase_wrap(dev, smi)
     log(f"dense launches: simple-transfer block {block_launches}, chain "
         f"wrap {wrap_launches}")
+    log(f"keccak launches: memory chain under hasher keccak "
+        f"{keccak_launches}")
+    times.update({("keccak_rows", shape): row
+                  for shape, row in keccak_times.items()})
+    errs["keccak_rows"] = keccak_err
     kernels = []
-    for name, (source, replaces, _, _) in KERNELS.items():
+    for name, (source, replaces, _, _, _) in KERNELS.items():
         shape = ROW_SHAPES[name]
         ms, plain_ms, bound_ms, bound_by = times[(name, shape)]
         launches = bench_launches[name] if "pallas" in name \
+            else keccak_launches[name] if name == "keccak_rows" \
             else block_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,

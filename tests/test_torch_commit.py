@@ -60,8 +60,18 @@ def test_tree_over_transposed_view():
 
 
 def test_other_hashers_not_ported():
-    with pytest.raises(NotImplementedError):
-        merkle.build_commitment_tree(GF.zeros((4, 2)), 0, hasher="keccak")
+    """Poseidon and the two Keccak configs are the hashers there are (the
+    Keccak trees are held to the JAX package in test_torch_keccak.py); the
+    tree and the path verifier refuse any other name, as the JAX
+    package's do."""
+    with pytest.raises(AssertionError):
+        merkle.build_commitment_tree(GF.zeros((4, 2)), 0, hasher="blake3")
+    with pytest.raises(AssertionError):
+        merkle.path_verifier("blake3")
+    for hasher in ("keccak", "keccak_host"):
+        tree = merkle.build_commitment_tree(GF.zeros((4, 2)), 0,
+                                            hasher=hasher)
+        assert tree.cap_u64().shape == (1, 4)
 
 
 @pytest.fixture(scope="module")

@@ -30,7 +30,9 @@ CPU_CALLS = """
 import json
 import numpy as np
 from zk_evm_tpu_torch.field import GF
-from zk_evm_tpu_torch.hash import poseidon, poseidon_dense, poseidon_pallas
+from zk_evm_tpu_torch.hash import (keccak_device, poseidon, poseidon_dense,
+                                   poseidon_pallas)
+from zk_evm_tpu_torch.merkle import build_commitment_tree
 from zk_evm_tpu_torch.parallel import commit_cap
 rng = np.random.default_rng(5)
 m = GF.from_u64(rng.integers(0, 2**63, size=(16, 13), dtype=np.uint64))
@@ -43,7 +45,10 @@ commit_cap(GF.from_u64(rng.integers(0, 2**63, size=(9, 16),
 poseidon_pallas.permute_pallas(GF.from_u64(
     rng.integers(0, 2**63, size=(3, 12), dtype=np.uint64)))
 poseidon_pallas.sponge_pallas(m)
-print(json.dumps([poseidon_dense.LAUNCHES, poseidon_pallas.LAUNCHES]))
+build_commitment_tree(m, cap_height=1, hasher="keccak")
+keccak_device.hash_rows(m.T)
+print(json.dumps([poseidon_dense.LAUNCHES, poseidon_pallas.LAUNCHES,
+                  keccak_device.LAUNCHES]))
 """
 
 
@@ -60,6 +65,10 @@ def test_port_imports_no_jax():
     # every subpackage the slice ports is walked, down to the kernels
     for name in ("zk_evm_tpu_torch.hash.poseidon_dense",
                  "zk_evm_tpu_torch.hash.poseidon_pallas",
+                 "zk_evm_tpu_torch.hash.keccak_device",
+                 "zk_evm_tpu_torch.hash.keccak_np",
+                 "zk_evm_tpu_torch.merkle.keccak_host",
+                 "zk_evm_tpu_torch.merkle.keccak_tree",
                  "zk_evm_tpu_torch.stark.prover",
                  "zk_evm_tpu_torch.stark.lookup",
                  "zk_evm_tpu_torch.stark.multi",
@@ -109,7 +118,8 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_calls_launch_no_kernel():
-    assert run_fresh(CPU_CALLS) == [{"permute": 0, "sponge": 0}] * 2
+    assert run_fresh(CPU_CALLS) == [{"permute": 0, "sponge": 0}] * 2 \
+        + [{"rows": 0}]
 
 
 # Host modules the port carries as jax-free copies; each is the reference's
@@ -117,7 +127,9 @@ def test_cpu_calls_launch_no_kernel():
 # the port had to edit (`hash/host_poseidon.py`, `stark/verifier.py`,
 # `stark/serialization.py`, `tables/logic.py`, `timing.py`) are held to
 # the reference by behaviour in the other test_torch_* files, and so are
-# the table copies (`tests/test_torch_tables.py`), the lookup module
+# the table copies (`tests/test_torch_tables.py`), the Keccak hasher
+# (`hash/keccak_np.py`, `tests/test_torch_keccak.py`), the cdk scenario
+# (`tests/test_torch_cdk.py`), the lookup module
 # (`tests/test_torch_lookup.py`), the multi-table prover
 # (`tests/test_torch_multi.py`), the witness generation, tries, fixtures
 # and public values (`tests/test_torch_witness.py`), the block layer
@@ -133,7 +145,8 @@ VERBATIM_COPIES = [
     "mpt/__init__.py", "mpt/rlp.py", "mpt/world.py",
     "witness/kernel_constants.json", "data/kernel_eth_mainnet.json.gz",
     "stark/debug.py", "recursion/known.py", "recursion/ram.py",
-    "recursion/tape_lib.py",
+    "recursion/tape_lib.py", "merkle/keccak_host.py", "merkle/keccak_tree.py",
+    "tables/all_stark.py",
 ]
 
 

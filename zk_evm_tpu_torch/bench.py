@@ -51,6 +51,14 @@ IMAD_PER_PERMUTATION = (118 * 4 * 4 + 8 * 12 * 12 * 2 + 11 * 11 * 4
                         + 22 * (22 * 4 + 2))
 IMAD_PER_SM_CLOCK = 64                      # Hopper's 32-bit IMAD issue rate
 HBM_BYTES_S = 3.35e12                       # H100 SXM data sheet
+# The least work of one keccak-f[1600] permutation in 32-bit logic and
+# funnel-shift instructions, three-input LOP3s where they fuse: per round
+# the column parities 20, rotl(C, 1) 10 funnel shifts, D applied 50 (one
+# LOP3 a half, s ^ C[x-1] ^ rotl(C[x+1], 1)), rho 48, chi 50; iota 1 a
+# round for the low half, plus 13 for the constants whose high half is
+# nonzero.
+INT_OPS_PER_KECCAK = 24 * (20 + 10 + 50 + 48 + 50 + 1) + 13
+INT_OPS_PER_SM_CLOCK = 64                   # Hopper's 32-bit integer rate
 
 
 def cuda_device() -> torch.device:
@@ -73,17 +81,38 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound_ms(ops: int, per_sm_clock: int, nbytes: int, clock_mhz: float,
+              sms: int) -> tuple[float, str]:
+    ops_ms = ops / (sms * per_sm_clock * clock_mhz * 1e6) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
 def poseidon_bound_ms(perms: int, nbytes: int, clock_mhz: float,
                       sms: int) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for
     `perms` permutations that read and write `nbytes` in all, the larger
     of their integer operations over the IMAD issue rate and their bytes
     over HBM."""
-    ops_ms = perms * IMAD_PER_PERMUTATION \
-        / (sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms \
-        else (bytes_ms, "bytes")
+    return _bound_ms(perms * IMAD_PER_PERMUTATION, IMAD_PER_SM_CLOCK, nbytes,
+                     clock_mhz, sms)
+
+
+def keccak_bound_ms(perms: int, nbytes: int, clock_mhz: float,
+                    sms: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of `perms` keccak-f[1600] permutations that
+    read and write `nbytes` in all: their logic instructions over the
+    32-bit integer rate, or their bytes over HBM."""
+    return _bound_ms(perms * INT_OPS_PER_KECCAK, INT_OPS_PER_SM_CLOCK,
+                     nbytes, clock_mhz, sms)
+
+
+def keccak_work(n_rows: int, width: int) -> tuple[int, int]:
+    """(permutations, bytes) of keccak256 over n_rows rows of `width`
+    words: width * 8 // 136 + 1 blocks a row, every word read once, a
+    4-word digest written per row."""
+    return n_rows * (width * 8 // 136 + 1), (width + 4) * n_rows * 8
 
 
 def sponge_work(n_cols: int, n_rows: int) -> tuple[int, int]:

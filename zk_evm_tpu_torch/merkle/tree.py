@@ -2,7 +2,9 @@
 
 The whole tree is batched hashing: one `hash_rows` over all leaves, then
 log2(n) - cap_height `compress` calls, each over a full level. On CUDA the
-leaf hash is the sponge kernel and every level the permute kernel.
+Poseidon tree's leaf hash is the sponge kernel and every level the permute
+kernel; the Keccak tree's (`build_tree_keccak_device`) are both the
+keccak256 rows kernel.
 
 Leaf index convention: callers pass leaves in the order they will be opened
 (for LDE oracles that is bit-reversed evaluation order, matching the FRI
@@ -71,3 +73,18 @@ def build_tree(leaves: GF, cap_height: int = 4) -> MerkleTree:
     n = leaves.shape[0]
     assert n & (n - 1) == 0 and n >= (1 << cap_height), (n, cap_height)
     return MerkleTree(leaves, _build_levels(leaves, cap_height), cap_height)
+
+
+def build_tree_keccak_device(leaves: GF, cap_height: int = 4) -> MerkleTree:
+    """Keccak commitment tree on the leaves' device (hash/keccak_device.py):
+    the digest law of the host-numpy twin (merkle/keccak_tree.py), the
+    MerkleTree interface of the Poseidon tree; the engine of
+    StarkConfig.hasher="keccak" (zk_evm's KeccakGoldilocksConfig,
+    tests/simple_transfer.rs:24,30)."""
+    from ..hash import keccak_device
+    n = leaves.shape[0]
+    assert n & (n - 1) == 0 and n >= (1 << cap_height), (n, cap_height)
+    levels = [keccak_device.hash_rows(leaves)]
+    while levels[-1].shape[0] > (1 << cap_height):
+        levels.append(keccak_device.compress(levels[-1]))
+    return MerkleTree(leaves, levels, cap_height)

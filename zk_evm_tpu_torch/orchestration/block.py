@@ -23,7 +23,8 @@ from ..stark.multi import AllProof, prove_all, verify_all
 from ..stark.poly_batch import PolynomialBatch
 from ..stark.prover import resolve_device
 from ..stark.public_values import memory_extra_looking_values
-from ..tables.all_stark import (Table, OPTIONAL_TABLES, MEMORY_CTL_IDX,
+from ..tables.all_stark import (Table, CDK_NUM_TABLES, CDK_OPTIONAL_TABLES,
+                                OPTIONAL_TABLES, MEMORY_CTL_IDX,
                                 all_cross_table_lookups, all_starks)
 from ..tables.cpu import cpu_stark_for_kernel
 from ..tables.memory_continuation import (generate_trace as _mc_trace,
@@ -51,11 +52,11 @@ def _initial_memory_cap(code: bytes, rate_bits: int, cap_height: int,
     return batch.cap_ints()
 
 
-def starks_for_kernel(kernel):
+def starks_for_kernel(kernel, flavor: str = "eth_mainnet"):
     """Verifier-side Stark instances: defaults with the CpuStark built
     from the kernel's label offsets."""
-    starks = all_starks()
-    starks[Table.Cpu] = cpu_stark_for_kernel(kernel)
+    starks = all_starks(flavor)
+    starks[Table.Cpu] = cpu_stark_for_kernel(kernel, flavor)
     return starks
 
 
@@ -70,9 +71,11 @@ def verify_block(all_proof: AllProof, kernel,
     memory extra looking sums are derived from PV + kernel identity, and
     (for a first segment) the MemBefore trace cap must equal the
     kernel's initial memory cap, committed on `device` (CUDA when not
-    given)."""
+    given). A proof of CDK_NUM_TABLES tables is a cdk_erigon proof."""
     config = config or StarkConfig()
-    starks = starks_for_kernel(kernel)
+    flavor = "cdk_erigon" if len(all_proof.proofs) == CDK_NUM_TABLES \
+        else "eth_mainnet"
+    starks = starks_for_kernel(kernel, flavor)
     kernel_code = bytes(kernel.code)
     pv = all_proof.public_values
     assert pv is not None, "block proof carries no public values"
@@ -92,9 +95,11 @@ def verify_block(all_proof: AllProof, kernel,
             [list(map(int, e)) for e in expected_cap], \
             "MemBefore cap does not bind the expected kernel"
 
-    verify_all(starks, all_proof, all_cross_table_lookups(), config,
+    optional = CDK_OPTIONAL_TABLES if flavor == "cdk_erigon" \
+        else OPTIONAL_TABLES
+    verify_all(starks, all_proof, all_cross_table_lookups(flavor), config,
                extra_looking_values={MEMORY_CTL_IDX: extra},
-               optional_tables=OPTIONAL_TABLES)
+               optional_tables=optional)
 
 
 def _cap_ints(proof) -> list:

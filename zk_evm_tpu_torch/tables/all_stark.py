@@ -6,8 +6,6 @@ CPU-side looking views of cpu_stark.rs:33-463: arithmetic dispatch,
 byte packing/unpacking (incl. user PUSH reads and syscall/exception
 jumptable reads), keccak-sponge calls, logic dispatch, the five memory
 bus channels, SET_CONTEXT's stack-pointer ops and context pruning.
-The eth_mainnet flavor only: the cdk_erigon flavor and its Poseidon
-table are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,7 +28,9 @@ from .segments import Segment
 
 
 class Table:
-    """Table indices, in the reference's order (all_stark.rs:74-107)."""
+    """Table indices, in the reference's order (all_stark.rs:74-107).
+    Poseidon (index 9) exists only in the cdk_erigon flavor
+    (all_stark.rs:85, feature-gated upstream)."""
     Arithmetic = 0
     BytePacking = 1
     Cpu = 2
@@ -40,14 +40,17 @@ class Table:
     Memory = 6
     MemBefore = 7
     MemAfter = 8
+    Poseidon = 9
 
 
 NUM_TABLES = 9
+CDK_NUM_TABLES = 10
 
 # Optional tables that may be skipped when their trace is empty
 # (all_stark.rs:110-126)
 OPTIONAL_TABLES = (Table.BytePacking, Table.Keccak, Table.KeccakSponge,
                    Table.Logic, Table.MemAfter)
+CDK_OPTIONAL_TABLES = OPTIONAL_TABLES + (Table.Poseidon,)
 
 MEMORY_CTL_IDX = 6
 
@@ -55,14 +58,15 @@ NUM_CHANNELS = 5          # code + 3 GP + partial (cpu/membus.rs)
 _CTX_STACK_SIZE = 11      # ContextMetadata::StackSize, unscaled
 
 
-def all_starks():
+def all_starks(flavor: str = "eth_mainnet"):
     """Stark instances in Table order. The CpuStark here carries default
     kernel offsets; provers built from a real run swap in the run's
-    instance."""
-    return [
+    instance (witness/traces.py _starks_with). flavor="cdk_erigon"
+    appends the Poseidon coprocessor table (all_stark.rs:85)."""
+    starks = [
         ArithmeticStark(),
         BytePackingStark(),
-        CpuStark(),
+        CpuStark(flavor=flavor),
         KeccakStark(),
         KeccakSpongeStark(),
         LogicStark(),
@@ -70,6 +74,10 @@ def all_starks():
         MemoryContinuationStark(),
         MemoryContinuationStark(),
     ]
+    if flavor == "cdk_erigon":
+        from .poseidon import PoseidonStark
+        starks.append(PoseidonStark())
+    return starks
 
 
 # ---------------------------------------------------------------------------
@@ -190,14 +198,15 @@ def _cpu_byte_packing_views():
     return (mload, mstore, push, jumptable)
 
 
-def _cpu_memory_views():
+def _cpu_memory_views(flavor: str = "eth_mainnet"):
     """The five memory-bus channels plus SET_CONTEXT's two stack-pointer
     ops (cpu_stark.rs:334-463). Tuple order matches memory.ctl_data():
     (is_read, ctx, seg, virt, 8 value limbs, timestamp)."""
     views = []
     # code channel: every executed instruction (is_cpu = sum of ALL op
-    # flags) reads its opcode
-    op_flags = tuple(cc.OP.values())
+    # flags, incl. the cdk poseidon flag) reads its opcode
+    op_flags = tuple(cc.OP.values()) \
+        + ((cc.POSEIDON,) if flavor == "cdk_erigon" else ())
     views.append(CtlView(
         table=Table.Cpu,
         columns=(ColExpr(const=1), col(cc.CODE_CONTEXT),
@@ -241,8 +250,98 @@ def _cpu_memory_views():
     return tuple(views)
 
 
-def all_cross_table_lookups() -> list[CrossTableLookup]:
-    """The 10 eth_mainnet CTLs (all_stark.rs:153-172)."""
+def _cdk_poseidon_simple_filter() -> Filter:
+    """op.poseidon * (1 - opcode_bits[0]) — POSEIDON, 0x22
+    (cpu_stark.rs ctl_poseidon_simple_filter:513-521)."""
+    return Filter(products=((col(cc.POSEIDON),
+                             ColExpr(terms=((cc.OPCODE_BITS[0], -1),),
+                                     const=1)),))
+
+
+def _cdk_poseidon_general_filter() -> Filter:
+    """op.poseidon * opcode_bits[0] — POSEIDON_GENERAL, 0x23
+    (cpu_stark.rs:526-533)."""
+    return Filter(product=(cc.POSEIDON, cc.OPCODE_BITS[0]))
+
+
+def _cdk_poseidon_simple_view() -> CtlView:
+    """GP channels 0..2 carry x,y,z as u64 felts (pairs of 32-bit limbs
+    recombined); the digest is the next row's top-of-stack
+    (cpu_stark.rs ctl_poseidon_simple_op:467-487)."""
+    cols = []
+    for channel in range(3):
+        ch = cc.MEM_CHANNELS[channel]
+        for i in range(4):
+            cols.append(ColExpr(terms=((ch.value[2 * i], 1),
+                                       (ch.value[2 * i + 1], 1 << 32))))
+    cols.extend(_ch_value_next(cc.MEM_CHANNELS[0]))
+    return CtlView(table=Table.Cpu, columns=tuple(cols),
+                   filter=_cdk_poseidon_simple_filter())
+
+
+def _cdk_poseidon_general_input_view() -> CtlView:
+    """(ctx, seg, virt) from the address on top, len from channel 1,
+    timestamp = clock * NUM_CHANNELS (cpu_stark.rs:490-507)."""
+    ctx, seg, virt = _cpu_addr_from_top()
+    return CtlView(
+        table=Table.Cpu,
+        columns=(ctx, seg, virt, col(cc.MEM_CHANNELS[1].value[0]),
+                 ColExpr(terms=((cc.CLOCK, NUM_CHANNELS),))),
+        filter=_cdk_poseidon_general_filter())
+
+
+def _cdk_poseidon_general_output_view() -> CtlView:
+    """Digest = next row's top, timestamp = clock * NUM_CHANNELS
+    (cpu_stark.rs ctl_poseidon_general_output:538-544)."""
+    return CtlView(
+        table=Table.Cpu,
+        columns=_ch_value_next(cc.MEM_CHANNELS[0])
+        + (ColExpr(terms=((cc.CLOCK, NUM_CHANNELS),)),),
+        filter=_cdk_poseidon_general_filter())
+
+
+def all_cross_table_lookups(
+        flavor: str = "eth_mainnet") -> list[CrossTableLookup]:
+    """The 10 eth_mainnet CTLs (all_stark.rs:153-172). flavor=
+    "cdk_erigon" adds the three Poseidon CTLs (all_stark.rs:166-170,
+    420-441) with their cdk-CPU looking views (the cdk CpuStark layout
+    carries the extra `poseidon` op flag) and the Poseidon table's 56
+    byte-read views into the memory CTL (all_stark.rs:345-349)."""
+    ctls = _base_ctls(flavor)
+    if flavor == "cdk_erigon":
+        from . import poseidon
+        ctls.append(CrossTableLookup(
+            name="poseidon_simple",
+            looking=(_cdk_poseidon_simple_view(),),
+            looked=CtlView(table=Table.Poseidon,
+                           columns=poseidon.ctl_looked_simple_op(),
+                           filter=poseidon.ctl_looked_simple_filter())))
+        ctls.append(CrossTableLookup(
+            name="poseidon_general_input",
+            looking=(_cdk_poseidon_general_input_view(),),
+            looked=CtlView(
+                table=Table.Poseidon,
+                columns=poseidon.ctl_looked_general_input(),
+                filter=poseidon.ctl_looked_general_input_filter())))
+        ctls.append(CrossTableLookup(
+            name="poseidon_general_output",
+            looking=(_cdk_poseidon_general_output_view(),),
+            looked=CtlView(
+                table=Table.Poseidon,
+                columns=poseidon.ctl_looked_general_output(),
+                filter=poseidon.ctl_looked_general_output_filter())))
+    return ctls
+
+
+def _base_ctls(flavor: str = "eth_mainnet") -> list[CrossTableLookup]:
+    poseidon_mem_views = ()
+    if flavor == "cdk_erigon":
+        from . import poseidon
+        poseidon_mem_views = tuple(
+            CtlView(table=Table.Poseidon,
+                    columns=poseidon.ctl_looking_memory(i),
+                    filter=poseidon.ctl_looking_memory_filter())
+            for i in range(poseidon.BLOCK_BYTES))
     return [
         # ctl_arithmetic: CPU -> Arithmetic
         CrossTableLookup(
@@ -302,7 +401,7 @@ def all_cross_table_lookups() -> list[CrossTableLookup]:
         # + 32 byte_packing ops + MemBefore rows -> Memory
         CrossTableLookup(
             name="memory",
-            looking=_cpu_memory_views()
+            looking=_cpu_memory_views(flavor)
             + tuple(
                 CtlView(table=Table.KeccakSponge,
                         columns=keccak_sponge.ctl_looking_memory(i),
@@ -313,6 +412,7 @@ def all_cross_table_lookups() -> list[CrossTableLookup]:
                         columns=byte_packing.ctl_looking_memory(i),
                         filter=byte_packing.ctl_looking_memory_filter(i))
                 for i in range(32))
+            + poseidon_mem_views
             + (CtlView(table=Table.MemBefore,
                        columns=memory_continuation.ctl_data_memory(),
                        filter=memory_continuation.ctl_filter()),),
