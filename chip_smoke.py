@@ -9,7 +9,7 @@ them, and holds each Poseidon kernel against its plain PyTorch version,
 the python-int host twin and the python-int twin of the fast
 partial-round form the kernels run (`hash/poseidon_fast.py`), on random
 states and on states made of one boundary value in every lane. Then it
-drives seven paths of the port, each with the kernels' launch counts set
+drives eight paths of the port, each with the kernels' launch counts set
 to 0 just before and read just after:
 
 1. LogicStark: a 2^12-row proof on CUDA equals the CPU proof byte for
@@ -47,11 +47,25 @@ to 0 just before and read just after:
    witness generation (the native VM core, built from native/ with g++),
    proves the two segments on the card, chains MemAfter -> MemBefore and
    aggregates the block on the host; `verify` accepts the block proof and
-   rejects it once one public value of the first segment changes. The
-   same for `add11`, a contract call, in one segment. Then one segment of
+   rejects it once one public value of the first segment changes (the
+   two `verify` runs in processes of their own, at once). add11, a
+   contract call, is proved in path 7. Then one segment of
    simple-transfer at the test config is proved on the card, and the
    sha256 of its `proof_to_json` must equal the JAX package's.
-7. Recursion: the verifier VM (Rvm, its RAM table and the Poseidon table
+7. Blocks from a witness, through the command line: a two-block witness
+   list written by `witness.testing_fixtures.build_witness_chain` (add11,
+   anchored at its checkpoint, and its txn-less child with one
+   withdrawal) is decoded (`decode`: the roots equal the fixture's), then
+   proved by `prove --witness` at the standard config as 2 + 2 batches
+   (the block decoder's masked tries, dummy batches and the withdrawal)
+   with the chain checked (A's checkpoint anchor, B's parent link).
+   `verify --checkpoint` accepts A and `verify` accepts B, five `verify`
+   processes run together: B under `--checkpoint` and A with one public
+   value changed exit 1, and the JAX package's standard-config proof of
+   mainnet block 1033, batch 0 (two segments, `b1033_batch0.zkproof.gz`)
+   is accepted. The kernels line reports the dense pair's launches on
+   this path, the permute's and the sponge's.
+8. Recursion: the verifier VM (Rvm, its RAM table and the Poseidon table
    under one transcript, the Rvm's program in a preprocessed oracle).
    First a 16-row Fibonacci proof is verified in a tape
    (`verify_stark_tape`) and the tape proved by `prove_system` on the
@@ -82,13 +96,17 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gzip
 import hashlib
 import importlib.util
 import io
 import json
 import os
+import shutil
 import subprocess
+import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -106,7 +124,7 @@ from zk_evm_tpu_torch.merkle import build_commitment_tree, keccak_host
 from zk_evm_tpu_torch.merkle.keccak_tree import (_digest_reduce,
                                                  build_tree_keccak)
 from zk_evm_tpu_torch.orchestration.aggregation import (
-    aggregate_block, check_checkpoint_block)
+    aggregate_block, check_checkpoint_block, verify_block_chain)
 from zk_evm_tpu_torch.orchestration.block import (prove_block, verify_block,
                                                   verify_segments)
 from zk_evm_tpu_torch.recursion import aggregate as agg
@@ -123,7 +141,8 @@ from zk_evm_tpu_torch.stark import (FriConfig, PolynomialBatch, Stark,
                                     verify_all, verify_stark)
 from zk_evm_tpu_torch.stark.public_values import (h256_limbs as pvm_h256,
                                                   public_values_from_dict)
-from zk_evm_tpu_torch.stark.serialization import proof_to_json
+from zk_evm_tpu_torch.stark.serialization import (block_proof_from_json,
+                                                  proof_to_json)
 from zk_evm_tpu_torch.tables import all_stark, cpu_columns as cc, logic, \
     memory
 from zk_evm_tpu_torch.tables.memory_chain import (chain_traces,
@@ -135,7 +154,8 @@ from zk_evm_tpu_torch.witness import native_vm
 from zk_evm_tpu_torch.witness.interpreter import Interpreter
 from zk_evm_tpu_torch.witness.kernel import combined_kernel
 from zk_evm_tpu_torch.witness.segments import generate_segment_tables
-from zk_evm_tpu_torch.witness.testing_fixtures import FIXTURES
+from zk_evm_tpu_torch.witness.testing_fixtures import (
+    FIXTURES, build_witness_chain)
 
 P = host.P
 SEED = 0
@@ -152,7 +172,8 @@ CHAIN_CHECK_WORDS = 700                     # Memory 2^10 rows
 CHAIN_WORDS = 3 << 18                       # every chain table 2^20 rows
 CHAIN_LOG_ROWS = 20
 # the block phase: proofs go under build/ at the root of the checkout
-BLOCK_DIR = Path(__file__).resolve().parent / "build" / "smoke"
+REPO = Path(__file__).resolve().parent
+BLOCK_DIR = REPO / "build" / "smoke"
 BLOCK_SEGMENT_LOG = 15                      # simple-transfer: 2 segments
 KECCAK_COLUMNS = 2431                       # the widest leaf of the block
 KECCAK_LOG_ROWS = 14                        # Keccak's minimum degree
@@ -162,6 +183,10 @@ KECCAK_LOG_ROWS = 14                        # Keccak's minimum degree
 # tests/test_torch_block.py holds the same constant
 SIMPLE_TRANSFER_TEST_CONFIG_SHA256 = (
     "3902cdd9bd01926e9f362b7c14ea25972b7c1720ad086fc708f06891a3743470")
+# the witness phase: add11 and its txn-less child, two batches each
+WITNESS_FIXTURE = "add11"
+WITNESS_BATCHES = [2, 2]
+B1033_PROOF = REPO / "b1033_batch0.zkproof.gz"
 # the recursion phase
 WRAP_SEGMENT_LOG = 14                       # simple-transfer: 3 segments
 WRAP_ONE_PROOF_LOG = 21                     # larger Rvm traces are chunked
@@ -827,8 +852,9 @@ def block_shapes(path: Path) -> list:
 def prove_and_verify_fixture(fixture: str, extra: list, segments: int,
                              smi: str) -> dict:
     """`prove` then `verify` of a fixture block through the command line,
-    and `verify` of the proof with one public value changed. Returns the
-    kernels' launches during `prove`."""
+    and `verify` of the proof with one public value changed, the two
+    `verify` runs in processes of their own at once. Returns the kernels'
+    launches during `prove`."""
     proof = BLOCK_DIR / f"{fixture}.zkproof"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -853,17 +879,20 @@ def prove_and_verify_fixture(fixture: str, extra: list, segments: int,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
         f"{launches}; state_root_after {summary['state_root_after']}; "
         f"log2 rows per segment {block_shapes(proof)}")
-    rc, out = run_cli(["verify", str(proof), "--device", "cuda"])
-    if rc != 0 or not json.loads(out.strip().splitlines()[-1])["ok"]:
-        raise AssertionError(f"verify rejected the {fixture} block proof")
     bad = BLOCK_DIR / f"{fixture}-tampered.zkproof"
     tamper_public_value(proof, bad)
-    rc, _ = run_cli(["verify", str(bad), "--device", "cuda"])
-    if rc != 1:
+    results = run_cli_processes({
+        "block": ["verify", str(proof), "--device", "cuda"],
+        "tampered": ["verify", str(bad), "--device", "cuda"]})
+    rc, out, _ = results["block"]
+    if rc != 0 or not json.loads(out.strip().splitlines()[-1])["ok"]:
+        raise AssertionError(f"verify rejected the {fixture} block proof")
+    if results["tampered"][0] != 1:
         raise AssertionError(f"verify of the tampered {fixture} proof: exit "
-                             f"{rc}, expected 1")
-    log(f"{fixture}: verify accepts the block proof and rejects it with "
-        f"block_gas_used + 1 in segment 0")
+                             f"{results['tampered'][0]}, expected 1")
+    log(f"{fixture}: verify accepts the block proof in "
+        f"{results['block'][2]:.2f} s and rejects it with block_gas_used + 1 "
+        f"in segment 0 in {results['tampered'][2]:.2f} s [{smi}]")
     return launches
 
 
@@ -881,10 +910,10 @@ def phase_block(dev, smi: str) -> dict:
     log(f"native/ built into {lib.name} and loaded in "
         f"{time.perf_counter() - t0:.2f} s; witness memory model {model}")
     BLOCK_DIR.mkdir(parents=True, exist_ok=True)
+    # add11, the fixture's contract call, proves in the witness phase
     launches = prove_and_verify_fixture(
         "simple-transfer", ["--max-cpu-len-log", str(BLOCK_SEGMENT_LOG)], 2,
         smi)
-    prove_and_verify_fixture("add11", [], 1, smi)
     # one simple-transfer segment at the test config and default table
     # sizes against the JAX package's proof
     if os.environ.get("ZK_TABLE_MIN_DEGREES"):
@@ -908,6 +937,132 @@ def phase_block(dev, smi: str) -> dict:
     log(f"simple-transfer, 1 segment, test config: witness {t1 - t0:.2f} s, "
         f"prove {t2 - t1:.2f} s, verify {time.perf_counter() - t2:.2f} s; "
         f"proof_to_json sha256 == the JAX package's {digest}")
+    return launches
+
+
+def run_cli_processes(commands: dict) -> dict:
+    """Each `python3 -m zk_evm_tpu_torch ARGV` of `commands` (name ->
+    argv) in a process of its own, all started together and waited for;
+    their output is logged. Returns name -> (exit code, standard output,
+    seconds from the start to that process's exit). Every process is
+    ended before this returns, whatever happens."""
+    procs, done = {}, {}
+    t0 = time.perf_counter()
+
+    def wait(name):
+        stdout, stderr = procs[name].communicate(timeout=600)
+        done[name] = (procs[name].returncode, stdout, stderr,
+                      time.perf_counter() - t0)
+    try:
+        for name, argv in commands.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "zk_evm_tpu_torch", *argv], cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        with ThreadPoolExecutor(max_workers=len(procs)) as pool:
+            for f in [pool.submit(wait, name) for name in procs]:
+                f.result()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for name, (rc, stdout, stderr, seconds) in done.items():
+        log(f"$ python3 -m zk_evm_tpu_torch {' '.join(commands[name])}  -> "
+            f"exit {rc} in {seconds:.2f} s (one of {len(procs)} run "
+            f"together)")
+        for line in (stderr + stdout).splitlines():
+            log(f"  | {line}")
+        out[name] = (rc, stdout, seconds)
+    return out
+
+
+def phase_witness(smi: str) -> dict:
+    """A chain of two blocks from one witness file, through the command
+    line: add11 (checkpoint-anchored) and its txn-less child with one
+    withdrawal, each decoded into two batches (the child's both dummy),
+    proved at the standard config and chained; then `verify` of both
+    block proofs, of their refusals, and of the JAX package's mainnet
+    proof of block 1033, batch 0. Returns the dense kernels' launches
+    while proving the chain."""
+    wdir = BLOCK_DIR / "witness"
+    wdir.mkdir(parents=True, exist_ok=True)
+    witnesses, roots = build_witness_chain(WITNESS_FIXTURE)
+    path = wdir / f"{WITNESS_FIXTURE}-chain.json"
+    path.write_text(json.dumps(witnesses))
+
+    rc, out = run_cli(["decode", str(path)])
+    decoded = [json.loads(line) for line in out.strip().splitlines()]
+    want = [{"post_state_root": "0x" + r.state_root.hex(),
+             "transactions_root": "0x" + r.transactions_root.hex(),
+             "receipts_root": "0x" + r.receipts_root.hex()} for r in roots]
+    got = [{k: d[k] for k in want[0]} for d in decoded]
+    if rc != 0 or got != want:
+        raise AssertionError(f"decode: exit {rc}, roots {got} != the "
+                             f"fixture's {want}")
+    if [d["batches"] for d in decoded] != WITNESS_BATCHES \
+            or [d["checkpoint_ok"] for d in decoded] != [True, False]:
+        raise AssertionError(f"decode: {decoded}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(wdir):              # b{n}.zkproof land here
+        rc, out = run_cli(["prove", "--witness", str(path), "--device",
+                           "cuda"])
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if rc != 0:
+        raise AssertionError(f"prove --witness: exit {rc}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    if summary["batches"] != WITNESS_BATCHES \
+            or summary["state_root_after"] != want[-1]["post_state_root"]:
+        raise AssertionError(f"prove --witness: {summary}")
+    for name in ("poseidon_permute", "poseidon_sponge"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched proving the "
+                                 f"witness chain")
+    proofs = [wdir / p for p in summary["proofs"]]
+    log(f"witness chain: {len(proofs)} blocks, batches "
+        f"{summary['batches']}, segments {summary['segments']}, proved in "
+        f"{seconds:.2f} s at the standard config [{smi}]; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {launches}; log2 rows per segment "
+        f"{[block_shapes(p) for p in proofs]}")
+    blocks = [block_proof_from_json(p.read_text()) for p in proofs]
+    t0 = time.perf_counter()
+    verify_block_chain(blocks, combined_kernel(), reverify=False,
+                       checkpoint_state_trie_root=bytes.fromhex(
+                           witnesses[0]["other_data"]
+                           ["checkpoint_state_trie_root"][2:]))
+    log(f"verify_block_chain: block A anchored at its checkpoint, block B "
+        f"linked to A, in {time.perf_counter() - t0:.2f} s")
+
+    block_a, block_b = proofs
+    bad = wdir / "block-a-tampered.zkproof"
+    tamper_public_value(block_a, bad)
+    b1033 = wdir / "b1033_batch0.zkproof"
+    with gzip.open(B1033_PROOF) as src, open(b1033, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    want_rc = {"A --checkpoint": 0, "B": 0, "B --checkpoint": 1,
+               "A tampered": 1, "b1033 batch 0": 0}
+    results = run_cli_processes({
+        "A --checkpoint": ["verify", str(block_a), "--checkpoint"],
+        "B": ["verify", str(block_b)],
+        "B --checkpoint": ["verify", str(block_b), "--checkpoint"],
+        "A tampered": ["verify", str(bad)],
+        "b1033 batch 0": ["verify", str(b1033)],
+    })
+    got_rc = {name: r[0] for name, r in results.items()}
+    if got_rc != want_rc:
+        raise AssertionError(f"verify exit codes {got_rc} != {want_rc}")
+    segments = json.loads(results["b1033 batch 0"][1].strip()
+                          .splitlines()[-1])["segments"]
+    log(f"verify [{smi}]: " + "; ".join(
+        f"{name} exit {r[0]} in {r[2]:.2f} s" for name, r in results.items())
+        + f"; b1033 batch 0 ({segments} segments, the JAX package's mainnet "
+        f"proof) accepted on the card")
     return launches
 
 
@@ -1158,10 +1313,11 @@ def main() -> None:
     keccak_launches = phase_chain_full(dev, smi, "keccak")
     phase_cdk(dev, smi)
     block_launches = phase_block(dev, smi)
+    witness_launches = phase_witness(smi)
     phase_wrap_small(dev)
     wrap_launches = phase_wrap(dev, smi)
     log(f"dense launches: simple-transfer block {block_launches}, chain "
-        f"wrap {wrap_launches}")
+        f"wrap {wrap_launches}, witness chain {witness_launches}")
     log(f"keccak launches: memory chain under hasher keccak "
         f"{keccak_launches}")
     times.update({("keccak_rows", shape): row
@@ -1173,7 +1329,7 @@ def main() -> None:
         ms, plain_ms, bound_ms, bound_by = times[(name, shape)]
         launches = bench_launches[name] if "pallas" in name \
             else keccak_launches[name] if name == "keccak_rows" \
-            else block_launches[name]
+            else witness_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": errs[name], "ms": ms,

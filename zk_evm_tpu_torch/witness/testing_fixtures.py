@@ -6,8 +6,10 @@ and cpu/kernel/constants/mod.rs:436-466 (cancun constants).
 
 from __future__ import annotations
 
-from ..mpt.trie import Trie, Nibbles
-from ..mpt.rlp import rlp_encode
+from dataclasses import dataclass, replace
+
+from ..mpt.trie import EMPTY_TRIE_HASH, Trie, Nibbles
+from ..mpt.rlp import rlp_decode, rlp_encode
 from ..mpt.world import Account
 from ..native import keccak256
 
@@ -98,6 +100,10 @@ VALUE = 100
 
 
 def build_simple_transfer_inputs():
+    return _simple_transfer_block().inputs
+
+
+def _simple_transfer_block() -> FixtureBlock:
     from ..decoder.core import GenerationInputs, TrieInputs
     from ..stark.public_values import (BlockMetadata, BlockHashes,
                                        TrieRoots)
@@ -154,7 +160,7 @@ def build_simple_transfer_inputs():
     tries = TrieInputs(state=state_before, storage=storage_tries,
                        transactions=Trie(), receipts=Trie())
 
-    return GenerationInputs(
+    inputs = GenerationInputs(
         txn_number_before=0,
         gas_used_before=0,
         gas_used_after=21032,
@@ -167,6 +173,12 @@ def build_simple_transfer_inputs():
         contract_code=contract_code,
         block_metadata=md,
         block_hashes=BlockHashes())
+    return FixtureBlock(
+        inputs=inputs, accounts=(SENDER, TO, BENEFICIARY), slots={},
+        state_after=state_after,
+        storage_after={BEACON_ROOTS_CONTRACT_ADDRESS_HASHED:
+                       beacon_storage},
+        receipt=receipt_0, gas_used=gas_used)
 
 
 def build_add11_inputs():
@@ -174,6 +186,10 @@ def build_add11_inputs():
     that computes 1+1 and SSTOREs it — exercises user-mode execution,
     syscalls, jumpdest analysis, and the account_code oracle
     (zk_evm's evm_arithmetization/tests/add11_yml.rs:30-201)."""
+    return _add11_block().inputs
+
+
+def _add11_block() -> FixtureBlock:
     from ..decoder.core import GenerationInputs, TrieInputs
     from ..stark.public_values import (BlockMetadata, BlockHashes,
                                        TrieRoots)
@@ -238,7 +254,7 @@ def build_add11_inputs():
                             receipts_root=receipts.root_hash())
     tries = TrieInputs(state=state_before, storage=storage_tries,
                        transactions=Trie(), receipts=Trie())
-    return GenerationInputs(
+    inputs = GenerationInputs(
         txn_number_before=0, gas_used_before=0, gas_used_after=0xA868,
         signed_txns=[txn], withdrawals=[], tries=tries,
         trie_roots_after=roots_after,
@@ -246,8 +262,216 @@ def build_add11_inputs():
         checkpoint_consolidated_hash=_empty_cch(),
         contract_code=contract_code, block_metadata=md,
         block_hashes=BlockHashes())
+    return FixtureBlock(
+        inputs=inputs, accounts=(beneficiary, sender, to), slots={to: (0,)},
+        state_after=state_after,
+        storage_after={BEACON_ROOTS_CONTRACT_ADDRESS_HASHED: beacon_storage,
+                       tk: storage_after},
+        receipt=receipt_0, gas_used=0xA868)
 
 
 # the cdk_erigon flavor's cdk-ger fixture is not ported
 FIXTURES = {"simple-transfer": build_simple_transfer_inputs,
             "add11": build_add11_inputs}
+
+
+# ---------------------------------------------------------------------------
+# Block witnesses built from the fixtures: the JSON that
+# `decoder.parse_block_prover_input` reads, with the pre-state given as
+# `separate` / `direct` proof-node stores (the shape the reference's native
+# RPC fetcher writes, zero/src/rpc/native/state.rs). Test inputs for the
+# decoder path; not a command-line feature.
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FixtureBlock:
+    """A one-txn fixture block with what its witness needs beyond the
+    inputs: the accounts and storage slots the txn touches, the
+    post-state tries and the txn's receipt and gas."""
+    inputs: object                # GenerationInputs
+    accounts: tuple               # addresses the txn touches (beacon aside)
+    slots: dict                   # address -> slots the txn writes
+    state_after: Trie
+    storage_after: dict           # hashed address -> storage Trie
+    receipt: bytes
+    gas_used: int
+
+
+def _hex(b: bytes) -> str:
+    return "0x" + bytes(b).hex()
+
+
+def _proof_nodes(trie: Trie) -> dict:
+    """`direct` pre-image of a whole trie: its root and the proof nodes of
+    every key it holds (mpt.builder.PartialTrieBuilder.to_json)."""
+    nodes = {}
+    for key, _ in trie.items():
+        for node in trie.get_proof(key):
+            nodes[keccak256(node)] = node
+    return {"root": _hex(trie.root_hash()),
+            "nodes": [_hex(n) for n in nodes.values()]}
+
+
+def _account(state: Trie, address: bytes):
+    from ..decoder.world import _decode_account
+    raw = state.get(Nibbles.from_bytes(keccak256(address)))
+    return None if raw is None else _decode_account(raw)
+
+
+def _slot(storage: dict, address: bytes, slot: int) -> int:
+    trie = storage.get(keccak256(address))
+    raw = None if trie is None else trie.get(
+        Nibbles.from_bytes(keccak256(slot.to_bytes(32, "big"))))
+    return 0 if raw is None else int.from_bytes(rlp_decode(raw), "big")
+
+
+def _traces(block: FixtureBlock) -> dict:
+    """The block's one txn as per-account deltas: for each touched
+    account, the balance and nonce where they changed, the slots written
+    and, where the account has code, the code read. An account that the
+    txn only reads (the fee recipient) appears with no delta."""
+    tries = block.inputs.tries
+    out = {}
+    for addr in block.accounts:
+        pre = _account(tries.state, addr) or Account()
+        post = _account(block.state_after, addr)
+        delta = {}
+        if post is not None:
+            if post.balance != pre.balance:
+                delta["balance"] = hex(post.balance)
+            if post.nonce != pre.nonce:
+                delta["nonce"] = hex(post.nonce)
+            written = {
+                _hex(slot.to_bytes(32, "big")):
+                    hex(_slot(block.storage_after, addr, slot))
+                for slot in block.slots.get(addr, ())
+                if _slot(block.storage_after, addr, slot)
+                != _slot(tries.storage, addr, slot)}
+            if written:
+                delta["storage_written"] = written
+            if post.code_hash != keccak256(b""):
+                delta["code_usage"] = {"read": _hex(post.code_hash)}
+        out[_hex(addr)] = delta
+    return out
+
+
+def _witness(inputs, state: Trie, storage: dict, txn_info: list,
+             withdrawals_gwei: list) -> dict:
+    md, bh = inputs.block_metadata, inputs.block_hashes
+    return {
+        "block_trace": {
+            "trie_pre_images": {"separate": {
+                "state": {"direct": _proof_nodes(state)},
+                "storage": {_hex(h): {"direct": _proof_nodes(t)}
+                            for h, t in storage.items()},
+            }},
+            "code_db": [_hex(c) for c in inputs.contract_code.values()
+                        if c],
+            "txn_info": txn_info,
+        },
+        "other_data": {
+            "b_data": {
+                "b_meta": {
+                    "block_beneficiary":
+                        _hex(md.block_beneficiary.to_bytes(20, "big")),
+                    "block_timestamp": md.block_timestamp,
+                    "block_number": md.block_number,
+                    "block_difficulty": md.block_difficulty,
+                    "block_random": _hex(md.block_random),
+                    "block_gaslimit": md.block_gaslimit,
+                    "block_chain_id": md.block_chain_id,
+                    "block_base_fee": md.block_base_fee,
+                    "block_gas_used": md.block_gas_used,
+                    "block_blob_gas_used": md.block_blob_gas_used,
+                    "block_excess_blob_gas": md.block_excess_blob_gas,
+                    "parent_beacon_block_root":
+                        _hex(md.parent_beacon_block_root),
+                    "block_bloom": list(md.block_bloom),
+                },
+                "b_hashes": {
+                    "prev_hashes": [_hex(h) for h in bh.prev_hashes],
+                    "cur_hash": _hex(bh.cur_hash),
+                },
+                "withdrawals": [[_hex(a), amount]
+                                for a, amount in withdrawals_gwei],
+            },
+            "checkpoint_state_trie_root":
+                _hex(inputs.checkpoint_state_trie_root),
+            "checkpoint_consolidated_hash":
+                list(inputs.checkpoint_consolidated_hash),
+        },
+    }
+
+
+def _fixture_witness(block: FixtureBlock) -> dict:
+    """Witness of a fixture block: its pre-state tries as proof nodes of
+    every account and slot, its one signed txn with receipt, gas and
+    per-account deltas. The beacon-roots account is not in the deltas:
+    the decoder's EIP-4788 hook writes it."""
+    gi = block.inputs
+    (txn,) = gi.signed_txns
+    txn_info = [{"meta": {"byte_code": _hex(txn),
+                          "new_receipt_trie_node_byte": _hex(block.receipt),
+                          "gas_used": block.gas_used},
+                 "traces": _traces(block)}]
+    return _witness(gi, gi.tries.state, gi.tries.storage, txn_info, [])
+
+
+# the child block's one withdrawal: an address with no account yet, paid
+# in gwei as a header's withdrawal list gives it
+WITHDRAWAL_ADDRESS = bytes.fromhex("7e57ab1e7e57ab1e7e57ab1e7e57ab1e7e57ab1e")
+WITHDRAWAL_GWEI = 32_000_000_000
+BLOCK_TIME = 12
+
+
+def _child_witness(parent: FixtureBlock) -> tuple[dict, bytes]:
+    """A block on top of `parent`: the next number, 12 s later, no txns,
+    one withdrawal to a new account, the previous-hash window slid by one
+    onto the parent's hash, the same checkpoint; its pre-state is the
+    parent's post-state. Returns (witness, expected post-state root), the
+    root computed from the fixture's own EIP-4788 write and the
+    withdrawal, not by the decoder."""
+    gi = parent.inputs
+    md = replace(gi.block_metadata,
+                 block_number=gi.block_metadata.block_number + 1,
+                 block_timestamp=gi.block_metadata.block_timestamp
+                 + BLOCK_TIME,
+                 block_gas_used=0)
+    prev = tuple(gi.block_hashes.prev_hashes[1:]) \
+        + (gi.block_hashes.cur_hash,)
+    hashes = replace(gi.block_hashes, prev_hashes=prev,
+                     cur_hash=keccak256(rlp_encode(md.block_number)))
+    child = replace(gi, signed_txns=[], withdrawals=[], block_metadata=md,
+                    block_hashes=hashes, gas_used_before=0,
+                    gas_used_after=0, txn_number_before=0)
+    witness = _witness(child, parent.state_after, parent.storage_after, [],
+                       [(WITHDRAWAL_ADDRESS, WITHDRAWAL_GWEI)])
+
+    state = parent.state_after.snapshot()
+    beacon = parent.storage_after[
+        BEACON_ROOTS_CONTRACT_ADDRESS_HASHED].snapshot()
+    update_beacon_roots_account_storage(beacon, md.block_timestamp,
+                                        md.parent_beacon_block_root)
+    state.insert(beacon_roots_account_nibbles(),
+                 beacon_roots_contract_from_storage(beacon).rlp())
+    state.insert(Nibbles.from_bytes(keccak256(WITHDRAWAL_ADDRESS)),
+                 Account(balance=WITHDRAWAL_GWEI * 10**9).rlp())
+    return witness, state.root_hash()
+
+
+_FIXTURE_BLOCKS = {"simple-transfer": _simple_transfer_block,
+                  "add11": _add11_block}
+
+
+def build_witness_chain(name: str = "add11") -> tuple[list, list]:
+    """The two-block witness list [A, B]: A is the fixture block, B its
+    txn-less child (`_child_witness`). Returns (witnesses, the TrieRoots
+    each block must end at)."""
+    block = _FIXTURE_BLOCKS[name]()
+    child, child_root = _child_witness(block)
+    from ..stark.public_values import TrieRoots
+    roots = [block.inputs.trie_roots_after,
+             TrieRoots(state_root=child_root,
+                       transactions_root=EMPTY_TRIE_HASH,
+                       receipts_root=EMPTY_TRIE_HASH)]
+    return [_fixture_witness(block), child], roots
