@@ -9,14 +9,14 @@ them, and holds each Poseidon kernel against its plain PyTorch version,
 the python-int host twin and the python-int twin of the fast
 partial-round form the kernels run (`hash/poseidon_fast.py`), on random
 states and on states made of one boundary value in every lane. Then it
-drives eight paths of the port, each with the kernels' launch counts set
+drives nine paths of the port, each with the kernels' launch counts set
 to 0 just before and read just after:
 
 1. LogicStark: a 2^12-row proof on CUDA equals the CPU proof byte for
    byte; a 2^16-row, 523-column LogicStark is proved at the standard
    config (84 FRI queries, 16-bit proof of work) and verified.
-2. The benchmark entry point, `zk_evm_tpu_torch.bench`: `main()` and
-   `compare_poseidon_layouts()`, which run the dense and the planes
+2. The benchmark entry point, `zk_evm_tpu_torch.bench`: `main()` through
+   the command line's `bench`, and `compare_poseidon_layouts()`, which run the dense and the planes
    Poseidon kernels; their JSON lines are printed.
 3. The memory-continuation chain MemBefore -> Memory -> MemAfter under one
    transcript with logUp lookups and cross-table lookups: at Memory 2^10
@@ -63,9 +63,26 @@ to 0 just before and read just after:
    processes run together: B under `--checkpoint` and A with one public
    value changed exit 1, and the JAX package's standard-config proof of
    mainnet block 1033, batch 0 (two segments, `b1033_batch0.zkproof.gz`)
-   is accepted. The kernels line reports the dense pair's launches on
-   this path, the permute's and the sponge's.
-8. Recursion: the verifier VM (Rvm, its RAM table and the Poseidon table
+   is accepted.
+8. The leader/worker service: `python3 -m zk_evm_tpu_torch leader` runs
+   in a process of its own; five requests are POSTed to it: a
+   prove_block job of the simple-transfer fixture, a prove_block job of
+   batch 0 of add11's block from the witness file of path 7, an echo, a
+   job of an unknown kind, and a malformed body (refused with 400). The
+   worker, `main(["worker", ...])` in this process, claims the four jobs
+   from the queue directory and proves the two blocks on the card
+   (witness run, nine tables at the standard config, the host verifier's
+   self-check, the proof file). A client thread polls `GET /jobs/<id>`:
+   both proofs are done, the echo echoes, the unknown kind fails, an
+   unknown id gets 404 and the leader's /metrics counts four jobs; each
+   proof is verified by `verify` in a process of its own, the two at
+   once after the worker has exited and the checks have passed, and
+   waited for before path 9 begins, so that no timed work overlaps
+   them. The simple-transfer proof file's sha256 must
+   equal the JAX package's worker's, and the add11 batch's trie roots
+   after must equal those `decode` prints. The kernels line reports the
+   dense pair's launches on this path, the permute's and the sponge's.
+9. Recursion: the verifier VM (Rvm, its RAM table and the Poseidon table
    under one transcript, the Rvm's program in a preprocessed oracle).
    First a 16-row Fibonacci proof is verified in a tape
    (`verify_stark_tape`) and the tape proved by `prove_system` on the
@@ -82,6 +99,16 @@ to 0 just before and read just after:
    (`prove_chunked`), and verified; a wrap proof with one FRI opening
    changed is rejected, and a child with one public value changed fails
    while its tape is built.
+
+The CPU proofs that paths 1, 3, 4 and 5 are held to (LogicStark 2^12
+under each hasher, the 2^10 memory chain, the cdk scenario) are made in
+one process of their own, at the lowest priority with
+CPU_REFERENCE_THREADS torch threads, started before the kernels are
+built. The kernels' checks and CUDA-event timings and the comparisons
+with those CPU proofs run while it works; the timed paths (commit_cap,
+LogicStark 2^16, the 2^20 chains, then paths 6-9) run after it has
+ended, with nothing of this script beside them. A closing line gives
+each phase's wall seconds.
 
 Field arithmetic is exact, so every comparison is bit-for-bit equality:
 the tolerance is 0. Every phase raises on failure. Needs one CUDA device;
@@ -101,19 +128,24 @@ import hashlib
 import importlib.util
 import io
 import json
+import multiprocessing
 import os
 import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+import urllib.error
+import urllib.request
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from zk_evm_tpu_torch import __main__ as cli
-from zk_evm_tpu_torch import bench, cuda_build, native, poseidon_ab
+from zk_evm_tpu_torch import bench, cuda_build, metrics, native, poseidon_ab
 from zk_evm_tpu_torch.bench import cuda_ms, random_gf
 from zk_evm_tpu_torch.challenger import Challenger
 from zk_evm_tpu_torch.field import GF, host
@@ -141,7 +173,8 @@ from zk_evm_tpu_torch.stark import (FriConfig, PolynomialBatch, Stark,
                                     verify_all, verify_stark)
 from zk_evm_tpu_torch.stark.public_values import (h256_limbs as pvm_h256,
                                                   public_values_from_dict)
-from zk_evm_tpu_torch.stark.serialization import (block_proof_from_json,
+from zk_evm_tpu_torch.stark.serialization import (all_proof_from_json,
+                                                  block_proof_from_json,
                                                   proof_to_json)
 from zk_evm_tpu_torch.tables import all_stark, cpu_columns as cc, logic, \
     memory
@@ -171,6 +204,7 @@ LOGIC_LOG_ROWS = 16
 CHAIN_CHECK_WORDS = 700                     # Memory 2^10 rows
 CHAIN_WORDS = 3 << 18                       # every chain table 2^20 rows
 CHAIN_LOG_ROWS = 20
+CPU_REFERENCE_THREADS = 3                   # the CPU proofs' torch threads
 # the block phase: proofs go under build/ at the root of the checkout
 REPO = Path(__file__).resolve().parent
 BLOCK_DIR = REPO / "build" / "smoke"
@@ -187,6 +221,16 @@ SIMPLE_TRANSFER_TEST_CONFIG_SHA256 = (
 WITNESS_FIXTURE = "add11"
 WITNESS_BATCHES = [2, 2]
 B1033_PROOF = REPO / "b1033_batch0.zkproof.gz"
+# the service phase: a leader in a process of its own, the worker here
+SERVICE_DIR = BLOCK_DIR / "service"
+SERVICE_JOBS = 4                            # (a)-(d); (e) is refused
+SERVICE_IDLE_S = 60                         # the worker's idle timeout
+# sha256 of the proof file the JAX package's worker writes for
+# {"kind": "prove_block", "fixture": "simple-transfer"} (the unsegmented
+# block, default table sizes, StarkConfig()), made on the CPU;
+# tests/test_torch_service.py holds the same constant
+PROVE_BLOCK_SIMPLE_TRANSFER_SHA256 = (
+    "ecc259fe9b373d56dc13c5d3fae1ae0890f1c10a98d7e5acc1238baa7edc9192")
 # the recursion phase
 WRAP_SEGMENT_LOG = 14                       # simple-transfer: 3 segments
 WRAP_ONE_PROOF_LOG = 21                     # larger Rvm traces are chunked
@@ -569,23 +613,70 @@ def logic_trace(rng, log_rows: int) -> np.ndarray:
     return logic.generate_trace(ops, min_rows=n)
 
 
-def phase_logic_small(rng, dev, hasher: str = "poseidon") -> None:
-    trace = logic_trace(rng, LOGIC_CHECK_LOG_ROWS)
+def logic_small_proof(trace: np.ndarray, hasher: str, device) -> str:
     cfg = dataclasses.replace(StarkConfig.test_config(), hasher=hasher)
-    stark = logic.LogicStark()
+    return proof_to_json(prove_stark(logic.LogicStark(), trace, cfg,
+                                     Challenger(), device=device))
+
+
+def chain_small_proof(device) -> str:
+    traces, starks, ctls, _ = chain_inputs(CHAIN_CHECK_WORDS)
+    return proof_to_json(prove_all(starks, traces, ctls,
+                                   StarkConfig.test_config(), device=device))
+
+
+def cdk_proof(device) -> str:
+    traces, starks, ctls, _ = cdk_inputs()
+    cfg = StarkConfig(security_bits=1, fri_config=FriConfig(**CDK_CFG_KW))
+    return proof_to_json(prove_all(starks, traces, ctls, cfg, device=device))
+
+
+def on_cpu(fn, *args):
+    """(fn(*args, device="cpu"), its seconds): a CPU reference proof, run
+    in the reference process."""
     t0 = time.perf_counter()
-    on_gpu = proof_to_json(prove_stark(stark, trace, cfg, Challenger(),
-                                       device=dev))
+    out = fn(*args, device="cpu")
+    return out, time.perf_counter() - t0
+
+
+def reference_process_init() -> None:
+    """The reference process yields the host's cores to the card's
+    phases, whose timed work is host-bound: lowest priority, and
+    CPU_REFERENCE_THREADS torch threads."""
+    os.nice(19)
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+
+
+def start_cpu_references(logic_traces: dict):
+    """The CPU reference proofs that the card's proofs must equal byte for
+    byte (LogicStark 2^12 under each hasher, the 2^10 memory chain, the
+    cdk scenario), made in one process of their own while the card's
+    phases run. Returns (executor, {name: future})."""
+    pool = ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=reference_process_init)
+    futures = {}                              # in the order main needs them
+    futures["logic poseidon"] = pool.submit(
+        on_cpu, logic_small_proof, logic_traces["poseidon"], "poseidon")
+    futures["chain"] = pool.submit(on_cpu, chain_small_proof)
+    futures["logic keccak"] = pool.submit(
+        on_cpu, logic_small_proof, logic_traces["keccak"], "keccak")
+    futures["cdk"] = pool.submit(on_cpu, cdk_proof)
+    return pool, futures
+
+
+def phase_logic_small(trace: np.ndarray, reference, dev,
+                      hasher: str = "poseidon") -> None:
+    t0 = time.perf_counter()
+    on_gpu = logic_small_proof(trace, hasher, dev)
     t1 = time.perf_counter()
-    on_cpu = proof_to_json(prove_stark(stark, trace, cfg, Challenger(),
-                                       device="cpu"))
-    t2 = time.perf_counter()
-    if on_gpu != on_cpu:
+    want, cpu_s = reference.result()
+    if on_gpu != want:
         raise AssertionError(f"LogicStark, hasher {hasher}: CUDA proof != "
                              f"CPU proof")
     log(f"LogicStark 2^{LOGIC_CHECK_LOG_ROWS} test config, hasher {hasher}: "
-        f"CUDA proof == CPU proof "
-        f"({len(on_gpu)} bytes; CUDA {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s)")
+        f"CUDA proof == CPU proof ({len(on_gpu)} bytes; CUDA {t1 - t0:.2f} "
+        f"s, CPU {cpu_s:.2f} s in the reference process)")
 
 
 def print_tree(tree: TimingTree) -> None:
@@ -644,11 +735,15 @@ def phase_logic_full(rng, dev, smi: str, hasher: str = "poseidon") -> dict:
 
 
 def phase_bench(smi: str) -> dict:
-    """The benchmark entry point; it prints its own JSON lines."""
+    """The benchmark entry point, through the command line's `bench`
+    (`bench.main()`), then the layout comparison; their JSON lines are
+    logged and printed."""
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    bench.main()
+    rc, _ = run_cli(["bench"])
+    if rc != 0:
+        raise AssertionError(f"bench: exit {rc}")
     bench.compare_poseidon_layouts()
     launches = read_counts()
     for name in PERMUTES + SPONGES:            # the Poseidon kernels it runs
@@ -667,21 +762,16 @@ def chain_inputs(n_words: int):
             all_stark.all_cross_table_lookups(), optional)
 
 
-def phase_chain_small(dev) -> None:
-    traces, starks, ctls, _ = chain_inputs(CHAIN_CHECK_WORDS)
-    rows = traces[all_stark.Table.Memory].shape[1]
-    cfg = StarkConfig.test_config()
+def phase_chain_small(reference, dev) -> None:
     t0 = time.perf_counter()
-    on_gpu = proof_to_json(prove_all(starks, traces, ctls, cfg, device=dev))
+    on_gpu = chain_small_proof(dev)
     t1 = time.perf_counter()
-    on_cpu = proof_to_json(prove_all(starks, traces, ctls, cfg,
-                                     device="cpu"))
-    t2 = time.perf_counter()
-    if on_gpu != on_cpu:
+    want, cpu_s = reference.result()
+    if on_gpu != want:
         raise AssertionError("memory chain: CUDA proof != CPU proof")
-    log(f"memory chain, Memory {rows} rows, test config: CUDA proof == CPU "
-        f"proof ({len(on_gpu)} bytes; CUDA {t1 - t0:.2f} s, CPU "
-        f"{t2 - t1:.2f} s)")
+    log(f"memory chain, {CHAIN_CHECK_WORDS} words, test config: CUDA proof "
+        f"== CPU proof ({len(on_gpu)} bytes; CUDA {t1 - t0:.2f} s, CPU "
+        f"{cpu_s:.2f} s in the reference process)")
 
 
 def phase_chain_full(dev, smi: str, hasher: str = "poseidon") -> dict:
@@ -744,7 +834,7 @@ def wrong_digest(traces) -> None:
     traces[all_stark.Table.Cpu][cc.MEM_CHANNELS[0].value[0], 1] ^= 1
 
 
-def phase_cdk(dev, smi: str) -> None:
+def phase_cdk(reference, dev, smi: str) -> None:
     """The cdk_erigon table set: the Poseidon coprocessor scenario, its
     ten tables under one transcript, proved on the card."""
     traces, starks, ctls, optional = cdk_inputs()
@@ -760,10 +850,9 @@ def phase_cdk(dev, smi: str) -> None:
     launches = read_counts()
     check_launches(launches, "poseidon", "the cdk scenario")
     on_gpu = proof_to_json(proof)
-    on_cpu = proof_to_json(prove_all(starks, traces, ctls, cfg,
-                                     device="cpu"))
+    want, cpu_s = reference.result()
     t2 = time.perf_counter()
-    if on_gpu != on_cpu:
+    if on_gpu != want:
         raise AssertionError("cdk scenario: CUDA proof != CPU proof")
     digest = hashlib.sha256(on_gpu.encode()).hexdigest()
     if digest != CDK_SCENARIO_SHA256:
@@ -771,7 +860,8 @@ def phase_cdk(dev, smi: str) -> None:
                              f"package's {CDK_SCENARIO_SHA256}")
     verify_all(starks, proof, ctls, cfg, optional_tables=optional)
     log(f"cdk_erigon scenario {shapes}, test config: proved on the card in "
-        f"{t1 - t0:.2f} s (CPU {t2 - t1:.2f} s), launches {launches}; CUDA "
+        f"{t1 - t0:.2f} s (CPU {cpu_s:.2f} s in the reference process), "
+        f"launches {launches}; CUDA "
         f"proof == CPU proof, sha256 == the JAX package's {digest[:8]}…; "
         f"verify_all accepts it in {time.perf_counter() - t2:.2f} s [{smi}]")
     # the standard config commits no table under 8 rows (a height-4 cap
@@ -1283,6 +1373,243 @@ def phase_wrap(dev, smi: str) -> dict:
 # the shape each kernel's row of the kernels line reports: the PoW grind
 # batch, the block's widest leaves (Keccak), the commit benchmark's
 # leaves; for the Keccak hasher, Logic's leaves (2^17 rows of 523 words)
+def http(url: str, job=None, raw: bytes | None = None) -> tuple:
+    """(status, JSON body) of a GET, or of a POST of `job` as JSON or of
+    `raw` bytes."""
+    body = raw if raw is not None else \
+        json.dumps(job).encode() if job is not None else None
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": "application/json"},
+        method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_leader(queue: Path, log_path: Path) -> tuple:
+    """`python3 -m zk_evm_tpu_torch leader` in a process of its own;
+    returns (process, base URL) once /healthz answers."""
+    port = free_port()
+    log_file = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "zk_evm_tpu_torch", "leader", "--queue",
+         str(queue), "--port", str(port)], cwd=REPO, stdout=log_file,
+        stderr=subprocess.STDOUT)
+    log_file.close()
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.perf_counter() + 120
+    while time.perf_counter() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"leader exited {proc.returncode}: "
+                                 f"{log_path.read_text()}")
+        try:
+            if http(base + "/healthz") == (200, {"ok": True}):
+                return proc, base
+        except OSError:
+            pass
+        time.sleep(0.2)
+    proc.kill()
+    raise AssertionError("leader did not answer /healthz in 120 s")
+
+
+def phase_split(timers: dict, job: dict) -> str:
+    """Where the prove_block jobs' seconds went, from the `phase.*`
+    timers `timing.timed` fed while they ran: the tables' trace commits
+    and proofs on the card, the phases inside them, and the rest of the
+    jobs (witness run, host self-verify, proof file)."""
+    def total(pred):
+        return sum(v["total_s"] for k, v in timers.items() if pred(k))
+    commits = total(lambda k: k.startswith("phase.commit ")
+                    and k.endswith(" trace") and k != "phase.commit trace")
+    proofs = total(lambda k: k.startswith("phase.prove "))
+    inner = {name: total(lambda k, n=name: k == f"phase.{n}")
+             for name in ("generate aux columns", "commit aux",
+                          "evaluate quotient", "commit quotient",
+                          "openings", "FRI")}
+    return (f"of {job['total_s']:.2f} s in the prove_block jobs: trace "
+            f"commits {commits:.2f} s, table proofs {proofs:.2f} s ("
+            + ", ".join(f"{n} {t:.2f}" for n, t in inner.items())
+            + f"), the rest (witness run, host self-verify, proof file, "
+            f"the transcript between the tables) "
+            f"{job['total_s'] - commits - proofs:.2f} s")
+
+
+def watch_jobs(base: str, ids: dict, t_submit: float, stop) -> tuple:
+    """Poll GET /jobs/<id> as a client would, until every job is done or
+    failed or `stop` is set. Records each job's seconds from submission
+    to done. Returns (thread, statuses, seconds), filled in place while
+    it runs."""
+    statuses, seconds = {}, {}
+
+    def loop():
+        while not stop.is_set() and len(statuses) < len(ids):
+            for name, job_id in ids.items():
+                if name in statuses:
+                    continue
+                _, st = http(f"{base}/jobs/{job_id}")
+                if st["status"] in ("done", "failed"):
+                    statuses[name] = st
+                    seconds[name] = time.perf_counter() - t_submit
+            stop.wait(0.25)
+    thread = threading.Thread(target=loop, daemon=True)
+    thread.start()
+    return thread, statuses, seconds
+
+
+def phase_service(smi: str) -> tuple:
+    """The leader/worker service: a leader (`python3 -m zk_evm_tpu_torch
+    leader`) in a process of its own accepts five requests over HTTP; the
+    worker (`main(["worker", ...])`, in this process, so that the kernels'
+    launches can be read) proves the two prove_block jobs on the card,
+    self-verifies and writes their proofs. Checks every job's answer, the
+    proof of simple-transfer against the JAX worker's (sha256) and the
+    witness job's roots against `decode`'s; then `verify` of both proofs
+    runs in processes of their own, and the phase waits for them, so that
+    nothing of it runs on into later timed work.
+    Returns the dense kernels' launches while the worker ran."""
+    if os.environ.get("ZK_TABLE_MIN_DEGREES"):
+        raise AssertionError("ZK_TABLE_MIN_DEGREES is set: the worker "
+                             "proves at the default table sizes")
+    if SERVICE_DIR.exists():
+        shutil.rmtree(SERVICE_DIR)
+    queue = SERVICE_DIR / "queue"
+    queue.mkdir(parents=True)
+    witnesses, _ = build_witness_chain(WITNESS_FIXTURE)
+    wpath = SERVICE_DIR / f"{WITNESS_FIXTURE}-chain.json"
+    wpath.write_text(json.dumps(witnesses))
+    rc, out = run_cli(["decode", str(wpath)])
+    if rc != 0:
+        raise AssertionError(f"decode: exit {rc}")
+    decoded = json.loads(out.strip().splitlines()[0])
+    outputs = {"a": SERVICE_DIR / "simple-transfer.zkproof",
+               "b": SERVICE_DIR / f"{WITNESS_FIXTURE}-batch0.zkproof"}
+    jobs = {
+        "a": {"kind": "prove_block", "fixture": "simple-transfer",
+              "output": str(outputs["a"])},
+        "b": {"kind": "prove_block", "witness": str(wpath), "index": 0,
+              "batch": 0, "output": str(outputs["b"])},
+        "c": {"kind": "echo", "payload": {"seed": SEED}},
+        "d": {"kind": "no-such-kind"},
+    }
+    leader, base = start_leader(queue, SERVICE_DIR / "leader.log")
+    stop = threading.Event()
+    watcher = None
+    try:
+        t_submit = time.perf_counter()
+        ids = {}
+        for name, job in jobs.items():
+            code, answer = http(base + "/jobs", job)
+            if code != 202:
+                raise AssertionError(f"POST job ({name}): {code} {answer}")
+            ids[name] = answer["job_id"]
+        code, answer = http(base + "/jobs", raw=b"{not json")
+        if code != 400:
+            raise AssertionError(f"malformed POST: {code} {answer}")
+        watcher, statuses, seconds = watch_jobs(base, ids, t_submit, stop)
+        metrics.REGISTRY.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        rc, out = run_cli(["worker", "--queue", str(queue), "--max-jobs",
+                           str(SERVICE_JOBS), "--idle-timeout",
+                           str(SERVICE_IDLE_S), "--name", "chip-smoke",
+                           "--device", "cuda"])
+        worker_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        snap = metrics.snapshot()
+        if rc != 0 or json.loads(out.strip().splitlines()[-1]) != {
+                "jobs_executed": SERVICE_JOBS}:
+            raise AssertionError(f"worker: exit {rc}, {out!r}")
+        watcher.join(30)
+        stop.set()
+        for name in jobs:
+            code, st = http(f"{base}/jobs/{ids[name]}")
+            statuses[name] = st
+        log(f"job answers: {statuses}")
+        for name in outputs:
+            st = statuses[name]
+            if st["status"] != "done" or \
+                    st["result"]["proof_path"] != str(outputs[name]):
+                raise AssertionError(f"prove_block job ({name}): {st}")
+        if statuses["c"] != {"status": "done",
+                             "result": {"echo": {"seed": SEED}}}:
+            raise AssertionError(f"echo job: {statuses['c']}")
+        st = statuses["d"]
+        if st["status"] != "failed" or \
+                "unknown job kind" not in st["error"]["error"]:
+            raise AssertionError(f"unknown-kind job: {st}")
+        code, answer = http(f"{base}/jobs/0123456789abcdef")
+        if (code, answer) != (404, {"status": "unknown"}):
+            raise AssertionError(f"unknown job id: {code} {answer}")
+        code, leader_metrics = http(base + "/metrics")
+        submitted = leader_metrics["counters"].get("leader.jobs_submitted")
+        if code != 200 or submitted != SERVICE_JOBS:
+            raise AssertionError(f"leader metrics: {code} {leader_metrics}")
+        for name in ("poseidon_permute", "poseidon_sponge"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} kernel never launched by the "
+                                     f"worker")
+        prove_timer = snap["timers"]["job.prove_block"]
+        if prove_timer["count"] != 2 or snap["counters"] != {
+                "worker.jobs_completed": 3.0, "worker.jobs_failed": 1.0}:
+            raise AssertionError(f"worker metrics: {snap['counters']} "
+                                 f"{prove_timer}")
+        log(f"service: {phase_split(snap['timers'], prove_timer)}")
+        log(f"service: worker ran {SERVICE_JOBS} jobs in {worker_s:.2f} s "
+            f"[{smi}]; submit-to-done seconds "
+            + ", ".join(f"({k}) {v:.2f}" for k, v in seconds.items())
+            + f"; job.prove_block {prove_timer}; cycles "
+            f"{[statuses[k]['result']['cycles'] for k in outputs]}; peak "
+            f"device memory {peak:.2f} GiB; launches {launches}; leader "
+            f"counters {leader_metrics['counters']}")
+
+        roots = all_proof_from_json(outputs["b"].read_text()) \
+            .public_values.trie_roots_after
+        got = {"post_state_root": roots.state_root,
+               "transactions_root": roots.transactions_root,
+               "receipts_root": roots.receipts_root}
+        got = {k: "0x" + bytes(v).hex() for k, v in got.items()}
+        want = {k: decoded[k] for k in got}
+        if got != want:
+            raise AssertionError(f"service (b): trie roots after {got} != "
+                                 f"decode's {want}")
+        log(f"service (b): trie roots after == decode's {want}")
+        digest = hashlib.sha256(outputs["a"].read_bytes()).hexdigest()
+        if digest != PROVE_BLOCK_SIMPLE_TRANSFER_SHA256:
+            raise AssertionError(
+                f"prove_block simple-transfer: sha256 {digest} != the JAX "
+                f"worker's {PROVE_BLOCK_SIMPLE_TRANSFER_SHA256}")
+        log(f"service (a): proof sha256 == the JAX worker's {digest}")
+        verified = run_cli_processes(
+            {name: ["verify", str(path), "--device", "cuda"]
+             for name, path in outputs.items()})
+        for name, (rc, stdout, _) in verified.items():
+            if rc != 0 or \
+                    not json.loads(stdout.strip().splitlines()[-1])["ok"]:
+                raise AssertionError(f"verify rejected proof ({name})")
+    finally:
+        stop.set()
+        if watcher is not None:
+            watcher.join(30)
+        leader.terminate()
+        try:
+            leader.wait(30)
+        except subprocess.TimeoutExpired:
+            leader.kill()
+            leader.wait()
+    return launches
+
+
 ROW_SHAPES = {
     "keccak_rows": (2 << LOGIC_LOG_ROWS, logic.NUM_COLUMNS),
     "poseidon_permute": (PERMUTE_BATCHES[-1],),
@@ -1292,32 +1619,68 @@ ROW_SHAPES = {
 }
 
 
+class PhaseClock:
+    """Wall seconds of each phase of the run, for the closing summary."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def __call__(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.seconds[name] = self.seconds.get(name, 0.0) \
+            + time.perf_counter() - t0
+        return out
+
+    def summary(self) -> str:
+        return ("phase seconds: " + ", ".join(
+            f"{name} {s:.2f}" for name, s in self.seconds.items())
+            + f"; run {time.perf_counter() - self.t0:.2f} s")
+
+
 def main() -> None:
+    clock_of = PhaseClock()
     smi = phase_environment()
     clock = sm_clock_mhz()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     rng = np.random.default_rng(SEED)
-    phase_build()
-    errs = {**phase_permute(rng, dev), **phase_sponge(rng, dev)}
-    phase_commit(rng, dev, smi)
-    times = phase_kernel_times(rng, dev, smi, clock)
-    phase_logic_small(rng, dev)
-    phase_logic_full(rng, dev, smi)
-    bench_launches = phase_bench(smi)
-    phase_chain_small(dev)
-    phase_chain_full(dev, smi)
-    keccak_err, keccak_times = phase_keccak(rng, dev, smi, clock)
-    phase_logic_small(rng, dev, "keccak")
-    phase_logic_full(rng, dev, smi, "keccak")
-    keccak_launches = phase_chain_full(dev, smi, "keccak")
-    phase_cdk(dev, smi)
-    block_launches = phase_block(dev, smi)
-    witness_launches = phase_witness(smi)
-    phase_wrap_small(dev)
-    wrap_launches = phase_wrap(dev, smi)
+    logic_traces = {hasher: logic_trace(rng, LOGIC_CHECK_LOG_ROWS)
+                    for hasher in ("poseidon", "keccak")}
+    pool, cpu_refs = start_cpu_references(logic_traces)
+    try:                                      # checks, beside the references
+        clock_of("build", phase_build)
+        errs = {**clock_of("permute", phase_permute, rng, dev),
+                **clock_of("sponge", phase_sponge, rng, dev)}
+        times = clock_of("kernel times", phase_kernel_times, rng, dev, smi,
+                         clock)
+        keccak_err, keccak_times = clock_of("keccak", phase_keccak, rng,
+                                            dev, smi, clock)
+        clock_of("logic small", phase_logic_small, logic_traces["poseidon"],
+                 cpu_refs["logic poseidon"], dev)
+        clock_of("chain small", phase_chain_small, cpu_refs["chain"], dev)
+        clock_of("logic small", phase_logic_small, logic_traces["keccak"],
+                 cpu_refs["logic keccak"], dev, "keccak")
+        clock_of("cdk", phase_cdk, cpu_refs["cdk"], dev, smi)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    # the timed paths, with nothing of this script beside them
+    clock_of("commit", phase_commit, rng, dev, smi)
+    clock_of("logic", phase_logic_full, rng, dev, smi)
+    bench_launches = clock_of("bench", phase_bench, smi)
+    clock_of("chain", phase_chain_full, dev, smi)
+    clock_of("logic", phase_logic_full, rng, dev, smi, "keccak")
+    keccak_launches = clock_of("chain", phase_chain_full, dev, smi, "keccak")
+    block_launches = clock_of("block", phase_block, dev, smi)
+    witness_launches = clock_of("witness", phase_witness, smi)
+    service_launches = clock_of("service", phase_service, smi)
+    clock_of("wrap small", phase_wrap_small, dev)
+    wrap_launches = clock_of("wrap", phase_wrap, dev, smi)
+    log(clock_of.summary())
     log(f"dense launches: simple-transfer block {block_launches}, chain "
-        f"wrap {wrap_launches}, witness chain {witness_launches}")
+        f"wrap {wrap_launches}, witness chain {witness_launches}, service "
+        f"{service_launches}")
     log(f"keccak launches: memory chain under hasher keccak "
         f"{keccak_launches}")
     times.update({("keccak_rows", shape): row
@@ -1329,7 +1692,7 @@ def main() -> None:
         ms, plain_ms, bound_ms, bound_by = times[(name, shape)]
         launches = bench_launches[name] if "pallas" in name \
             else keccak_launches[name] if name == "keccak_rows" \
-            else witness_launches[name]
+            else service_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": errs[name], "ms": ms,

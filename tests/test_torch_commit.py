@@ -49,6 +49,83 @@ def test_build_tree(n_cols, cap_height):
                                                   path_len=5 - cap_height)
 
 
+def _openings(n_cols, cap_height, idx, hasher="poseidon"):
+    leaves = rng.integers(0, P, size=(32, n_cols), dtype=np.uint64)
+    tree = merkle.build_commitment_tree(GF.from_u64(leaves), cap_height,
+                                        hasher=hasher)
+    cap = [[int(v) for v in d] for d in tree.cap_u64()]
+    return ([[int(v) for v in leaves[i]] for i in idx], tree.prove_many(idx),
+            cap)
+
+
+def _outcome(fn, *args):
+    """fn's answer, or the type of what it raised."""
+    try:
+        return fn(*args)
+    except Exception as e:              # noqa: BLE001 - compared, not hidden
+        return type(e)
+
+
+def _tampered(leaves, paths, cap):
+    """Each way one opening of five can be wrong, and the first opening's
+    leaf changed by a multiple of P (values outside the field)."""
+    yield "leaf", [[(leaves[0][0] + 1) % P] + leaves[0][1:]] + leaves[1:], \
+        paths, cap
+    if paths[2]:
+        sib = [list(s) for s in paths[2]]
+        sib[-1][3] = (sib[-1][3] + 1) % P
+        yield "sibling", leaves, paths[:2] + [sib] + paths[3:], cap
+        yield "short path", leaves, paths[:3] + [paths[3][:-1]] + paths[4:], \
+            cap
+    yield "long path", leaves, paths[:3] + [paths[3] + [cap[0]]] \
+        + paths[4:], cap
+    yield "cap", leaves, paths, [list(d) for d in cap[:-1]] + [
+        [(cap[-1][0] + 1) % P] + cap[-1][1:]]
+    yield "wide leaf", [leaves[0] + [0]] + leaves[1:], paths, cap
+    yield "beyond P", [[leaves[0][0] + P] + leaves[0][1:]] + leaves[1:], \
+        paths, cap
+    yield "beyond u64", [[leaves[0][0] + (1 << 64)] + leaves[0][1:]] \
+        + leaves[1:], paths, cap
+
+
+@pytest.mark.parametrize("n_cols", [3, 4, 5, 8, 12, 523])
+@pytest.mark.parametrize("cap_height", [0, 2, 5])
+def test_verify_paths_equals_verify_path(n_cols, cap_height):
+    """The FRI verifier's batched path check agrees with the JAX
+    package's one-opening verify_path on every opening, honest or not
+    (leaf, sibling, path length, cap, leaf width, values outside the
+    field or outside u64), and on the empty batch."""
+    idx = [0, 5, 31, 5, 16]
+    path_len = 5 - cap_height
+    leaves, paths, cap = _openings(n_cols, cap_height, idx)
+
+    def one_by_one(lv, ps, cp):
+        return all(jmerkle.host_merkle.verify_path(leaf, i, p, cp,
+                                                   path_len=path_len)
+                   for leaf, i, p in zip(lv, idx, ps))
+    assert merkle.paths.verify_paths(leaves, idx, paths, cap, path_len)
+    assert one_by_one(leaves, paths, cap)
+    for what, lv, ps, cp in _tampered(leaves, paths, cap):
+        got = _outcome(merkle.paths.verify_paths, lv, idx, ps, cp, path_len)
+        assert got == _outcome(one_by_one, lv, ps, cp), what
+    assert not merkle.paths.verify_paths(leaves, [0, 5, 32, 5, 16], paths,
+                                         cap, path_len)
+    assert merkle.paths.verify_paths([], [], [], cap, path_len)
+
+
+def test_verify_paths_keccak_equals_verify_path():
+    idx = [1, 7, 30, 7, 12]
+    leaves, paths, cap = _openings(17, 1, idx, hasher="keccak_host")
+    verify = merkle.paths_verifier("keccak")
+    assert verify is merkle.paths_verifier("keccak_host")
+    assert verify(leaves, idx, paths, cap, 4)
+    for what, lv, ps, cp in _tampered(leaves, paths, cap):
+        want = _outcome(lambda: all(
+            jmerkle.keccak_merkle.verify_path(leaf, i, p, cp, path_len=4)
+            for leaf, i, p in zip(lv, idx, ps)))
+        assert _outcome(verify, lv, idx, ps, cp, 4) == want, what
+
+
 def test_tree_over_transposed_view():
     """Leaves passed as lde.T (the LDE's own layout) build the same tree."""
     lde = rng.integers(0, P, size=(9, 16), dtype=np.uint64)

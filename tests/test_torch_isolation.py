@@ -121,7 +121,16 @@ def test_port_imports_no_jax():
                  "zk_evm_tpu_torch.recursion.verify_tape",
                  "zk_evm_tpu_torch.recursion.system",
                  "zk_evm_tpu_torch.recursion.continuation",
-                 "zk_evm_tpu_torch.recursion.aggregate"):
+                 "zk_evm_tpu_torch.recursion.aggregate",
+                 "zk_evm_tpu_torch.metrics",
+                 "zk_evm_tpu_torch.runtime_config",
+                 "zk_evm_tpu_torch.timing",
+                 "zk_evm_tpu_torch.orchestration.runtime",
+                 "zk_evm_tpu_torch.orchestration.prover",
+                 "zk_evm_tpu_torch.orchestration.persistence",
+                 "zk_evm_tpu_torch.orchestration.queue",
+                 "zk_evm_tpu_torch.orchestration.leader_http",
+                 "zk_evm_tpu_torch.witness.debug"):
         assert name in out["modules"]
     assert out["loaded"] == []
 
@@ -145,8 +154,12 @@ def test_cpu_calls_launch_no_kernel():
 # and public values (`tests/test_torch_witness.py`), the block layer
 # (`tests/test_torch_block.py`), the Poseidon table
 # (`tests/test_torch_poseidon_table.py`), the sponge scenario
-# (`tests/test_torch_scenarios.py`) and the recursion modules that pass a
-# device or require the native tape core (`tests/test_torch_recursion.py`).
+# (`tests/test_torch_scenarios.py`), the recursion modules that pass a
+# device or require the native tape core (`tests/test_torch_recursion.py`),
+# the witness debug tooling (`witness/debug.py`, `tests/test_torch_debug.py`),
+# the runtime config, which keeps only the settings a command reads
+# (`tests/test_torch_runtime_config.py`), and the service layer's queue,
+# leader, prover and proof files (`tests/test_torch_service.py`).
 VERBATIM_COPIES = [
     "field/host.py", "field/np_field.py", "field/hext.py",
     "hash/poseidon_params.py", "challenger/challenger.py",
@@ -169,6 +182,22 @@ EDITED_COPIES = {
     # the docstring names the upstream crate instead of a local checkout
     "smt/smt.py": {3: ("Functional twin of the reference's smt_trie crate "
                        "(zk_evm's")},
+    # the docstring names the port; the port logs under its own name
+    "metrics.py": {
+        5: "worker binaries configure RUST_LOG-style filtering). The "
+           "port's twin: one",
+        112: '    return logging.getLogger("zk_evm_tpu_torch")'},
+    # the pool's threads share one card: more than one overlaps host work
+    "orchestration/runtime.py": {
+        9: "order), and AbortSignal cancels cooperatively between steps. "
+           "On the card",
+        10: "only one-thread runtimes have run: Runtime(num_workers>1) "
+            "overlaps host",
+        11: "work only, while device work queues on the one card in turn.",
+        52: "        # Device work queues on the one card in turn; >1 worker "
+            "overlaps",
+        53: "        # host-side stages only (witness gen, proof "
+            "serialization)."},
 }
 
 
@@ -191,3 +220,76 @@ def test_host_copy_differs_only_in_listed_lines(path):
     differ = {i + 1: line for i, (line, want) in enumerate(zip(port, ref))
               if line != want}
     assert differ == EDITED_COPIES[path]
+
+
+WORKER_WITHOUT_CARD = """
+import json, os, sys, torch
+torch.cuda.is_available = lambda: False
+from zk_evm_tpu_torch.__main__ import main
+from zk_evm_tpu_torch.orchestration.queue import FsQueue
+q = FsQueue(sys.argv[1])
+q.submit({"kind": "echo", "payload": 1})
+try:
+    main(["worker", "--queue", q.path, "--max-jobs", "1"])
+    raised = None
+except RuntimeError as e:
+    raised = str(e)
+print(json.dumps({"raised": raised, "files": sorted(
+    f.split(".", 1)[1] for f in os.listdir(q.path)), "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                  "zk_evm_tpu"))}))
+"""
+
+LEADER = """
+import json, sys, threading, urllib.request
+from zk_evm_tpu_torch import __main__ as cli
+from zk_evm_tpu_torch.orchestration import leader_http
+serve = leader_http.serve
+started = threading.Event()
+servers = []
+
+def in_background(*args, **kw):
+    servers.append(serve(*args, background=True, **kw))
+    started.set()
+    return servers[-1]
+
+leader_http.serve = in_background
+assert cli.main(["leader", "--queue", sys.argv[1], "--port", "0"]) == 0
+started.wait(30)
+srv = servers[0]
+base = f"http://127.0.0.1:{srv.server_address[1]}"
+health = json.loads(urllib.request.urlopen(base + "/healthz").read())
+req = urllib.request.Request(base + "/jobs", method="POST",
+                             data=json.dumps({"kind": "echo"}).encode())
+job = json.loads(urllib.request.urlopen(req).read())
+srv.shutdown()
+print(json.dumps({"health": health, "job": sorted(job), "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                  "zk_evm_tpu"))}))
+"""
+
+
+def run_fresh_argv(code: str, *argv) -> dict:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, *argv], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_worker_refuses_without_card(tmp_path):
+    """`worker` proves on CUDA by default: with no card it raises before
+    claiming a job, and runs nothing on the CPU."""
+    out = run_fresh_argv(WORKER_WITHOUT_CARD, str(tmp_path / "q"))
+    assert out["raised"].startswith("no CUDA device")
+    assert out["files"] == ["default.job.json"]
+    assert out["loaded"] == []
+
+
+def test_leader_serves_without_jax(tmp_path):
+    """`leader` serves through `serve`; with it started in the
+    background, a job is accepted and neither jax nor the JAX package
+    was loaded."""
+    out = run_fresh_argv(LEADER, str(tmp_path / "q"))
+    assert out == {"health": {"ok": True}, "job": ["job_id"], "loaded": []}

@@ -85,6 +85,61 @@ def test_fib_port_verifier_accepts_jax_proof(fib_proofs):
                  cfg, Challenger())
 
 
+def _bump(v):
+    return (v + 1) % host.P
+
+
+def _tamper_leaf(fp):
+    leaf = fp.query_rounds[1].initial.leaves[0]
+    leaf[1] = _bump(leaf[1])
+
+
+def _tamper_sibling(fp):
+    sib = fp.query_rounds[0].initial.paths[0][-1]
+    sib[0] = _bump(sib[0])
+
+
+def _tamper_coset(fp):
+    step = fp.query_rounds[1].steps[0]
+    a, b = step.coset_values[-1]
+    step.coset_values[-1] = (a, _bump(b))
+
+
+def _tamper_step_path(fp):
+    sib = fp.query_rounds[0].steps[0].path[0]
+    sib[3] = _bump(sib[3])
+
+
+def _tamper_final_poly(fp):
+    a, b = fp.final_poly[0]
+    fp.final_poly[0] = (_bump(a), b)
+
+
+def _tamper_pow(fp):
+    fp.pow_witness += 1
+
+
+@pytest.mark.parametrize("tamper", [
+    _tamper_leaf, _tamper_sibling, _tamper_coset, _tamper_step_path,
+    _tamper_final_poly, _tamper_pow], ids=lambda f: f.__name__[8:])
+def test_fib_fri_tampering_rejected_by_both(fib_proofs, tamper):
+    """One FRI value changed in the port's proof: the port's verifier
+    (each tree's openings checked as one batch, alpha's powers made once
+    a proof) rejects it wherever the JAX package's verifier (opening by
+    opening) does."""
+    import copy
+    from zk_evm_tpu.stark.serialization import stark_proof_from_json
+    proof, _, cfg, jcfg, pis = fib_proofs
+    bad = copy.deepcopy(proof)
+    tamper(bad.fri_proof)
+    with pytest.raises(AssertionError):
+        jverify_stark(JFibStark(), stark_proof_from_json(proof_to_json(bad)),
+                      jcfg, JChallenger())
+    with pytest.raises(AssertionError):
+        verify_stark(FibStark(), bad, cfg, Challenger(),
+                     expected_public_inputs=pis)
+
+
 def test_fib_rejects_bad_trace():
     trace, pis = fib_trace(64)
     trace[2, 10] = (int(trace[2, 10]) + 1) % host.P

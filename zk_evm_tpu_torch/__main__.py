@@ -1,8 +1,13 @@
 """Command-line front end of the port (`python -m zk_evm_tpu_torch ...`).
 
-Twin of the JAX package's `decode`, `prove` and `verify` (the reference's
-zero binaries, zero/src/bin/):
+Twin of the JAX package's command line (the reference's zero binaries,
+zero/src/bin/):
 
+  [--config cfg.json] [--flavor eth_mainnet] [--log-level L] COMMAND ...
+          resolved through runtime_config.load (CLI > ZK_* env > the
+          config file > defaults); they fill --batch-size and
+          --max-cpu-len-log where a command leaves them unset, and set
+          the logging level (ZK_LOG); any other flavor is refused
   decode  <witness.json> [--batch-size N]
           block witness(es) -> one JSON line a block: trie roots before
           and after, batches, gas (the leader's decode stage)
@@ -19,11 +24,31 @@ zero binaries, zero/src/bin/):
           checkpoint anchor), a JSON list of segment AllProofs (one
           batch's chain), or a single AllProof, against the canonical
           kernel
+  worker  --queue DIR [--max-jobs N] [--idle-timeout S] [--name W]
+          [--affinity light,heavy] [--device cuda|cpu]
+          claim jobs from a shared queue directory and run them:
+          `prove_block` jobs prove a fixture or a decoded witness batch
+          on this process's card (orchestration/queue.py)
+  leader  --queue DIR [--host H] [--port P]
+          HTTP leader: POST /jobs, GET /jobs/<id>, /metrics, /healthz,
+          dispatching through the queue directory to workers. It trusts
+          its clients: a job names the files a worker reads and writes,
+          so keep it on localhost (the default host)
+  bench   the commitment benchmark (zk_evm_tpu_torch.bench), one JSON
+          line
+  trie-diff A B
+          structural diff of two trie-shape JSON dumps (a witness
+          debug bundle's); exit 1 with the diff lines, 0 without
 
-`prove` and `verify` run on CUDA unless `--device cpu` is given; without a
-card they raise rather than fall back to the CPU. Every command raises if
-the native host library (the witness VM core, the host Poseidon and
-Keccak) does not build, rather than run its python twins.
+`prove`, `verify` and `worker` run on CUDA unless `--device cpu` is given;
+without a card they raise rather than fall back to the CPU. `bench` needs
+the card. The commands that run the witness VM or a verifier raise if the
+native host library (the witness VM core, the host Poseidon and Keccak)
+does not build, rather than run its python twins.
+
+A `--max-cpu-len-log` of 0, which the runtime config gives by default,
+means no segmentation, as `runtime_config.py` documents: one segment a
+batch.
 """
 
 from __future__ import annotations
@@ -35,10 +60,6 @@ import os
 import sys
 
 from . import native
-
-# txns per batch when --batch-size is not given: the JAX package's
-# resolved default (its runtime_config.RuntimeConfig.batch_size)
-BATCH_SIZE = 10
 
 
 def _device(name: str):
@@ -210,12 +231,68 @@ def cmd_verify(args) -> int:
     return 0
 
 
+def cmd_worker(args) -> int:
+    """Worker loop: claim prove jobs from a shared-directory queue and
+    run them on this process's card (bin/worker.rs twin)."""
+    device = _device(args.device)
+    native.require()
+    from .orchestration.queue import run_worker
+    classes = tuple(args.affinity.split(",")) if args.affinity else None
+    n = run_worker(args.queue, max_jobs=args.max_jobs,
+                   idle_timeout=args.idle_timeout,
+                   worker_name=args.name, classes=classes, device=device)
+    print(json.dumps({"jobs_executed": n}))
+    return 0
+
+
+def cmd_leader(args) -> int:
+    """HTTP leader (leader.rs http-mode twin): accept jobs over HTTP,
+    dispatch via the shared queue directory to workers."""
+    from .orchestration.leader_http import serve
+    print(f"leader serving on {args.host}:{args.port} "
+          f"(queue: {args.queue})", file=sys.stderr, flush=True)
+    serve(args.queue, host=args.host, port=args.port)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    del args
+    from . import bench
+    bench.main()
+    return 0
+
+
+def cmd_trie_diff(args) -> int:
+    """Structural diff of two trie-shape JSON dumps — the files written
+    by witness/debug.py's error bundles (bin/trie_diff.rs twin)."""
+    from .witness.debug import trie_diff
+    with open(args.a) as f:
+        a = json.load(f)
+    with open(args.b) as f:
+        b = json.load(f)
+    diffs = trie_diff(a, b)
+    for d in diffs:
+        print(d)
+    if not diffs:
+        print("tries are structurally identical")
+    return 1 if diffs else 0
+
+
 def main(argv=None) -> int:
+    from . import metrics, runtime_config
     p = argparse.ArgumentParser(prog="zk_evm_tpu_torch")
+    p.add_argument("--config", default=None,
+                   help="JSON config file (or ZK_CONFIG)")
+    p.add_argument("--flavor", choices=("eth_mainnet",), default=None,
+                   help="chain flavor (or ZK_FLAVOR); the port proves "
+                        "eth_mainnet blocks only")
+    p.add_argument("--log-level", default=None,
+                   choices=("error", "warn", "info", "debug"),
+                   help="logging level (or ZK_LOG)")
     sub = p.add_subparsers(dest="cmd", required=True)
     d = sub.add_parser("decode", help="decode a block witness")
     d.add_argument("witness")
-    d.add_argument("--batch-size", type=int, default=BATCH_SIZE)
+    d.add_argument("--batch-size", type=int, default=None)
     d.set_defaults(fn=cmd_decode)
     pr = sub.add_parser("prove", help="prove a block or a chain of blocks")
     src = pr.add_mutually_exclusive_group(required=True)
@@ -223,7 +300,7 @@ def main(argv=None) -> int:
     src.add_argument("--fixture", choices=("simple-transfer", "add11"),
                      help="built-in test block")
     pr.add_argument("-o", "--output", default="block.zkproof")
-    pr.add_argument("--batch-size", type=int, default=BATCH_SIZE)
+    pr.add_argument("--batch-size", type=int, default=None)
     pr.add_argument("--max-cpu-len-log", type=int, default=None,
                     help="segment the proof at 2^N CPU rows "
                          "(zk-continuations)")
@@ -246,7 +323,54 @@ def main(argv=None) -> int:
                    help="torch device of the initial-cap commitment "
                         "(default cuda)")
     v.set_defaults(fn=cmd_verify)
+    b = sub.add_parser("bench", help="run the commitment benchmark")
+    b.set_defaults(fn=cmd_bench)
+    w = sub.add_parser("worker",
+                       help="serve prove jobs from a shared queue dir")
+    w.add_argument("--queue", required=True)
+    w.add_argument("--max-jobs", type=int, default=None)
+    w.add_argument("--idle-timeout", type=float, default=None,
+                   help="exit after this many idle seconds")
+    w.add_argument("--name", default=None)
+    w.add_argument("--affinity", default=None,
+                   help="comma-separated routing classes to claim "
+                        "(e.g. 'heavy' or 'light,default'); the "
+                        "reference's light-proof/heavy-proof worker "
+                        "affinity (leader.rs:28-70)")
+    w.add_argument("--device", default="cuda",
+                   help="torch device to prove on (default cuda)")
+    w.set_defaults(fn=cmd_worker)
+    td = sub.add_parser("trie-diff",
+                        help="diff two trie-shape JSON dumps")
+    td.add_argument("a")
+    td.add_argument("b")
+    td.set_defaults(fn=cmd_trie_diff)
+    ld = sub.add_parser("leader",
+                        help="HTTP leader serving jobs into a queue dir")
+    ld.add_argument("--queue", required=True)
+    ld.add_argument("--host", default="127.0.0.1",
+                    help="address to bind (default 127.0.0.1); the leader "
+                         "trusts its clients, whose jobs name the files "
+                         "a worker reads and writes, so keep it on "
+                         "localhost")
+    ld.add_argument("--port", type=int, default=8080)
+    ld.set_defaults(fn=cmd_leader)
     args = p.parse_args(argv)
+    rc = runtime_config.load(
+        cli_overrides={
+            "flavor": args.flavor,
+            "log_level": args.log_level,
+            "batch_size": getattr(args, "batch_size", None),
+            "max_cpu_len_log": getattr(args, "max_cpu_len_log", None),
+        },
+        config_path=args.config)
+    metrics.setup_logging(rc.log_level)
+    # the resolved config fills the per-command flags left unset; a
+    # max_cpu_len_log of 0 is the config's "no segmentation"
+    if hasattr(args, "batch_size"):
+        args.batch_size = rc.batch_size
+    if hasattr(args, "max_cpu_len_log"):
+        args.max_cpu_len_log = rc.max_cpu_len_log or None
     return args.fn(args)
 
 

@@ -1,6 +1,7 @@
 from .tree import MerkleTree, build_tree, build_tree_keccak_device
 from . import host as host_merkle
 from . import keccak_host as keccak_merkle
+from . import paths
 
 
 def build_commitment_tree(leaves, cap_height: int = 4,
@@ -34,5 +35,15 @@ def path_verifier(hasher: str = "poseidon"):
     return host_merkle.verify_path
 
 
+def paths_verifier(hasher: str = "poseidon"):
+    """The host verify_paths (many openings of one tree) for a hasher
+    config."""
+    if hasher in ("keccak", "keccak_host"):
+        return paths.verify_paths_keccak
+    assert hasher == "poseidon", hasher
+    return paths.verify_paths
+
+
 __all__ = ["MerkleTree", "build_tree", "build_commitment_tree",
-           "path_verifier", "host_merkle", "keccak_merkle"]
+           "path_verifier", "paths_verifier", "host_merkle",
+           "keccak_merkle"]

@@ -16,13 +16,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import copy
+import operator
 
 import numpy as np
 
 from ..field import GF, GFE, host, np_field
 from ..hash import poseidon
-from ..merkle import (MerkleTree, build_commitment_tree, host_merkle,
-                      path_verifier)
+from ..merkle import MerkleTree, build_commitment_tree, paths_verifier
 from ..challenger import Challenger
 from .config import FriConfig
 from ..ntt.ntt import bit_reverse_indices, ifft
@@ -392,46 +392,86 @@ def verify_fri(oracle_caps: list[list[list[int]]],
                challenger.get_n_challenges(config.num_query_rounds)]
     assert len(proof.query_rounds) == len(indices)
 
-    vp = path_verifier(hasher)
+    _verify_openings(indices, proof, oracle_caps, oracle_widths, arities,
+                     init_path_len, step_shapes, paths_verifier(hasher))
+    terms = _batch_terms(batches, alpha)
     for idx, rnd in zip(indices, proof.query_rounds):
-        _verify_query(idx, rnd, oracle_caps, batches, alpha, betas,
-                      proof, log_m, arities, config,
-                      oracle_widths, init_path_len, step_shapes, vp)
+        _verify_query(idx, rnd, batches, terms, betas, proof, log_m,
+                      arities)
+
+
+def _verify_openings(indices, proof: FriProof, oracle_caps, oracle_widths,
+                     arities, init_path_len, step_shapes,
+                     verify_paths) -> None:
+    """Every query round's shapes, then its Merkle openings, tree by
+    tree: each initial oracle at the query index, each commit-phase tree
+    at the folded coset's index."""
+    rounds = proof.query_rounds
+    for rnd in rounds:
+        assert len(rnd.initial.leaves) == len(oracle_caps)
+        assert len(rnd.initial.paths) == len(oracle_caps)
+        assert len(rnd.steps) == len(arities), "FRI step count mismatch"
+        for leaf, width in zip(rnd.initial.leaves, oracle_widths):
+            assert len(leaf) == width, "initial oracle leaf width mismatch"
+        for step, ab in zip(rnd.steps, arities):
+            assert len(step.coset_values) == 1 << ab, \
+                "FRI coset width mismatch"
+    for oi, cap in enumerate(oracle_caps):
+        assert verify_paths([rnd.initial.leaves[oi] for rnd in rounds],
+                            indices,
+                            [rnd.initial.paths[oi] for rnd in rounds],
+                            cap, init_path_len), \
+            "initial oracle Merkle check failed"
+    coset_idx = list(indices)
+    for k, ((ab, step_path_len, _cap_len), cap) in enumerate(
+            zip(step_shapes, proof.commit_phase_caps)):
+        coset_idx = [i >> ab for i in coset_idx]
+        assert verify_paths([[v for pair in rnd.steps[k].coset_values
+                              for v in pair] for rnd in rounds],
+                            coset_idx,
+                            [rnd.steps[k].path for rnd in rounds],
+                            cap, step_path_len), \
+            "commit-phase Merkle failed"
+
+
+def _batch_terms(batches: list[FriOpeningBatch], alpha):
+    """Per batch, the query-independent part of its numerator
+    sum_t alpha^t (p_t(x) - y_t): the powers alpha^t as two lists of
+    base-field coordinates, and sum_t alpha^t y_t. The power t runs on
+    across batches."""
+    terms = []
+    ap = (1, 0)
+    for batch in batches:
+        a_pows, b_pows = [], []
+        claimed = (0, 0)
+        for yv in batch.values:
+            a_pows.append(ap[0])
+            b_pows.append(ap[1])
+            claimed = host.eadd(claimed, host.emul(ap, tuple(yv)))
+            ap = host.emul(ap, alpha)
+        terms.append((a_pows, b_pows, claimed))
+    return terms
 
 
 def _bitrev_int(i: int, bits: int) -> int:
     return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
 
 
-def _verify_query(idx: int, rnd: FriQueryRound,
-                  oracle_caps, batches, alpha, betas,
-                  proof: FriProof, log_m, arities, config,
-                  oracle_widths, init_path_len, step_shapes,
-                  _verify_path=host_merkle.verify_path) -> None:
-    # -- initial tree openings -------------------------------------------
-    assert len(rnd.initial.leaves) == len(oracle_caps)
-    assert len(rnd.initial.paths) == len(oracle_caps)
-    assert len(rnd.steps) == len(arities), "FRI step count mismatch"
-    for leaf, path, cap, width in zip(rnd.initial.leaves,
-                                      rnd.initial.paths,
-                                      oracle_caps, oracle_widths):
-        assert len(leaf) == width, "initial oracle leaf width mismatch"
-        assert _verify_path(leaf, idx, path, cap,
-                            path_len=init_path_len), \
-            "initial oracle Merkle check failed"
-
+def _verify_query(idx: int, rnd: FriQueryRound, batches, terms, betas,
+                  proof: FriProof, log_m, arities) -> None:
+    """One query round's arithmetic; its shapes and Merkle openings were
+    checked by _verify_openings."""
     # -- reconstruct G(x) from the opened oracle values -------------------
     g = host.primitive_root_of_unity(log_m)
     x = host.fmul(host.MULT_GENERATOR, host.fexp(g, _bitrev_int(idx, log_m)))
     gx = (0, 0)
-    t = 0
-    for batch in batches:
-        num = (0, 0)
-        for (oracle_idx, poly_idx), yv in zip(batch.entries, batch.values):
-            ap = host.eexp(alpha, t)
-            pv = rnd.initial.leaves[oracle_idx][poly_idx]
-            num = host.eadd(num, host.emul(ap, host.esub((pv, 0), yv)))
-            t += 1
+    for batch, (a_pows, b_pows, claimed) in zip(batches, terms):
+        # sum_t alpha^t (p_t(x) - y_t), p_t(x) in the base field
+        pvs = [rnd.initial.leaves[oracle_idx][poly_idx]
+               for oracle_idx, poly_idx in batch.entries]
+        num = host.esub((sum(map(operator.mul, a_pows, pvs)) % host.P,
+                         sum(map(operator.mul, b_pows, pvs)) % host.P),
+                        claimed)
         denom = host.esub((x, 0), batch.point)
         gx = host.eadd(gx, host.emul(num, host.einv(denom)))
 
@@ -441,20 +481,12 @@ def _verify_query(idx: int, rnd: FriQueryRound,
     cur_log_m = log_m
     shift = host.MULT_GENERATOR
     inv2 = INV2
-    for step, shape, beta, cap in zip(rnd.steps, step_shapes, betas,
-                                      proof.commit_phase_caps):
-        ab, step_path_len, _cap_len = shape
+    for step, ab, beta in zip(rnd.steps, arities, betas):
         arity = 1 << ab
-        assert len(step.coset_values) == arity, \
-            "FRI coset width mismatch"
         coset_idx = idx_cur >> ab
         slot = idx_cur & (arity - 1)
         assert tuple(step.coset_values[slot]) == tuple(eval_cur), \
             "fold chain value mismatch"
-        leaf_flat = [v for pair in step.coset_values for v in pair]
-        assert _verify_path(leaf_flat, coset_idx, step.path,
-                            cap, path_len=step_path_len), \
-            "commit-phase Merkle failed"
         # iterated pairwise fold of the coset, tracking x per position
         gk = host.primitive_root_of_unity(cur_log_m)
         xs = [host.fmul(shift,

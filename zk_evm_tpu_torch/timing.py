@@ -25,6 +25,8 @@ from dataclasses import dataclass, field
 
 import torch
 
+from . import metrics
+
 
 @dataclass
 class _Node:
@@ -95,10 +97,12 @@ def record(name: str, seconds: float) -> None:
 
 @contextlib.contextmanager
 def timed(name: str):
-    """Time a phase under the ambient TimingTree, if one is active.
-    Phases also log at info level as they close, so long proving runs
-    are observable while in flight. Host clock; a phase waits for the
-    CUDA work it queued, so its time includes its device work."""
+    """Time a phase under the ambient TimingTree, if one is active, and
+    feed the process-wide metrics registry (`metrics.py`, as
+    `phase.<name>`) either way. Phases also log at info level as they
+    close, so long proving runs are observable while in flight. Host
+    clock; a phase waits for the CUDA work it queued, so its time
+    includes its device work."""
     log = logging.getLogger("zk_evm_tpu_torch")
     tree = _ACTIVE.get()
     t0 = time.perf_counter()
@@ -115,4 +119,5 @@ def timed(name: str):
                     torch.cuda.synchronize()
     finally:
         dt = time.perf_counter() - t0
+        metrics.observe(f"phase.{name}", dt)
         log.info("phase %-40s %8.2fs", name, dt)

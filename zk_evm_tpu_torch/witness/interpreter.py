@@ -307,7 +307,8 @@ def _ctxm(name: str) -> int:
 class Interpreter:
     """Kernel interpreter with full witness-generation semantics."""
 
-    def __init__(self, kernel: Kernel, initial_offset=0):
+    def __init__(self, kernel: Kernel, initial_offset=0,
+                 max_cycles=MAX_CYCLES):
         from . import native_vm
         self.kernel = kernel
         self.memory = native_vm.make_memory()
@@ -317,7 +318,7 @@ class Interpreter:
         # (pc, opcode, is_kernel, context, stack-before) per step
         self.trace = []
         self.record_trace = True
-        self.max_cycles = MAX_CYCLES
+        self.max_cycles = max_cycles
         self.halt_offsets = {DEFAULT_HALT_OFFSET}
         if "halt_final" in kernel.global_labels:
             self.halt_offsets.add(kernel.global_labels["halt_final"])
@@ -1594,3 +1595,21 @@ def initial_registers(kernel: Kernel) -> Registers:
     return Registers(program_counter=kernel.global_labels["main"],
                      is_kernel=True)
 
+
+def run_generation(kernel: Kernel, inputs, max_cycles=MAX_CYCLES):
+    """Full witness run: initialize from GenerationInputs and execute
+    init -> main -> ... -> halt -> exc_stop -> halt_final
+    (the reference's simulate_cpu path, generation/mod.rs:640-668). A
+    failing run writes a debug bundle (`debug.dump_error_artifacts`) and
+    names it in a note on the exception."""
+    interp = Interpreter(kernel, kernel.global_labels["init"],
+                         max_cycles=max_cycles)
+    interp.initialize_from_inputs(inputs)
+    try:
+        interp.run_segment(initial_registers(kernel))
+    except Exception as err:
+        from .debug import dump_error_artifacts
+        err.add_note("witness debug artifacts: "
+                     + dump_error_artifacts(interp, err))
+        raise
+    return interp

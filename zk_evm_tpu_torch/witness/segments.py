@@ -23,7 +23,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
-from .interpreter import Interpreter, Registers, initial_registers
+from .interpreter import (MAX_CYCLES, Interpreter, Registers,
+                          initial_registers)
 
 # Upper bound on exc_stop epilogue cycles in the frozen kernel: measured
 # 81 on every segment; the reference's
@@ -51,12 +52,14 @@ class SegmentDataIterator:
     through the payload; each yielded item is an independent snapshot a
     tracing run can start from."""
 
-    def __init__(self, kernel, inputs, max_cpu_len_log: int | None = None):
+    def __init__(self, kernel, inputs, max_cpu_len_log: int | None = None,
+                 max_cycles: int = MAX_CYCLES):
         from ..tables.memory_continuation import \
             kernel_initial_memory_values
         self.kernel = kernel
         self.max_cpu_len_log = max_cpu_len_log
-        self.interp = Interpreter(kernel, kernel.global_labels["init"])
+        self.interp = Interpreter(kernel, kernel.global_labels["init"],
+                                  max_cycles=max_cycles)
         self.interp.record_trace = False
         self.interp.initialize_from_inputs(inputs)
         self._next = SegmentData(
@@ -122,12 +125,14 @@ class SegmentDataIterator:
         return cur
 
 
-def run_segment_generation(kernel, inputs,
-                           segment: SegmentData) -> Interpreter:
+def run_segment_generation(kernel, inputs, segment: SegmentData,
+                           max_cycles: int = MAX_CYCLES) -> Interpreter:
     """Tracing re-run of one segment: returns a finished interpreter
     ready for witness/traces.generate_all_tables (the per-segment
-    generate_traces path, generation/mod.rs:496-560)."""
-    interp = Interpreter(kernel, kernel.global_labels["init"])
+    generate_traces path, generation/mod.rs:496-560). A failing run
+    writes a debug bundle and names it in a note on the exception."""
+    interp = Interpreter(kernel, kernel.global_labels["init"],
+                         max_cycles=max_cycles)
     interp.initialize_from_inputs(inputs, segment=segment)
     regen = segment.extra.get("jumpdest_regen_log")
     if regen:
@@ -136,7 +141,13 @@ def run_segment_generation(kernel, inputs,
     limit = None
     if segment.max_cpu_len_log is not None:
         limit = (1 << segment.max_cpu_len_log) - NUM_EXTRA_CYCLES_AFTER
-    interp.run_segment(segment.registers_before, cycle_limit=limit)
+    try:
+        interp.run_segment(segment.registers_before, cycle_limit=limit)
+    except Exception as err:
+        from .debug import dump_error_artifacts
+        err.add_note(f"segment {segment.index} debug artifacts: "
+                     + dump_error_artifacts(interp, err))
+        raise
     fr = interp.final_registers
     assert fr is not None, "segment did not reach exc_stop"
     if segment.registers_after is not None:
@@ -157,7 +168,8 @@ def run_segment_generation(kernel, inputs,
     return interp
 
 
-def generate_segment_tables(kernel, inputs, max_cpu_len_log=None):
+def generate_segment_tables(kernel, inputs, max_cpu_len_log=None,
+                            max_cycles: int = MAX_CYCLES):
     """Full zk-continuations witness pipeline: yields one GeneratedTables
     per segment, with each segment's table MemBefore chained from the
     previous segment's table-generated mem_after (so MemAfter(k) ==
@@ -165,10 +177,11 @@ def generate_segment_tables(kernel, inputs, max_cpu_len_log=None):
     verifier.rs:514-547)."""
     from .traces import generate_all_tables
     prev_mem_after = None
-    for seg in SegmentDataIterator(kernel, inputs, max_cpu_len_log):
+    for seg in SegmentDataIterator(kernel, inputs, max_cpu_len_log,
+                                   max_cycles):
         if seg.index > 0:
             seg.mem_before_values = prev_mem_after
-        interp = run_segment_generation(kernel, inputs, seg)
+        interp = run_segment_generation(kernel, inputs, seg, max_cycles)
         gt = generate_all_tables(interp)
         prev_mem_after = gt.mem_after_values
         yield seg, gt
