@@ -9,7 +9,7 @@ them, and holds each Poseidon kernel against its plain PyTorch version,
 the python-int host twin and the python-int twin of the fast
 partial-round form the kernels run (`hash/poseidon_fast.py`), on random
 states and on states made of one boundary value in every lane. Then it
-drives nine paths of the port, each with the kernels' launch counts set
+drives ten paths of the port, each with the kernels' launch counts set
 to 0 just before and read just after:
 
 1. LogicStark: a 2^12-row proof on CUDA equals the CPU proof byte for
@@ -99,6 +99,25 @@ to 0 just before and read just after:
    (`prove_chunked`), and verified; a wrap proof with one FRI opening
    changed is rejected, and a child with one public value changed fails
    while its tape is built.
+10. One proof over several devices (`parallel.Mesh`, an ordered list of
+   devices; on a host with one card every entry names cuda:0, so the
+   splits, all-to-alls and gathers run, and no copy crosses cards):
+   `sharded_commit_cap` at 64 x 2^16 over meshes of 1, 2 and 4 entries
+   (and of every card, on a host with more than one) equals
+   `commit_cap`'s cap, each entry launching one sponge and its
+   subtree's permutes (counted exactly), timed beside `commit_cap`; a
+   Keccak tree of 523 x 2^17 leaves over two entries equals the
+   single-device tree; path 3's 2^20-row chain is proved again with its
+   three trace commitments on three CUDA streams at once
+   (`prove_all(parallel_commits=True)`, launching exactly what path 3
+   launched) and over a two-entry mesh, each proof path 3's byte
+   for byte; `entry()` runs on the card (its cap is the JAX package's)
+   and `dryrun_multichip(2)` passes over two cards, or, on a host with
+   one, over a mesh that names cuda:0 twice; the native RPC
+   fetcher, through `HttpTransport` against a JSON-RPC node on
+   127.0.0.1 serving a toy block, returns the JAX package's object, whose
+   decoded roots are the node's. The kernels line reports path 10's
+   launches of each kernel as `mesh_launches`.
 
 The CPU proofs that paths 1, 3, 4 and 5 are held to (LogicStark 2^12
 under each hasher, the 2^10 memory chain, the cdk scenario) are made in
@@ -167,7 +186,13 @@ from zk_evm_tpu_torch.recursion.system import (RVM, prove_system,
                                                verify_system)
 from zk_evm_tpu_torch.recursion.tape_lib import sponge_hash
 from zk_evm_tpu_torch.recursion.verify_tape import verify_stark_tape
-from zk_evm_tpu_torch.parallel import commit_cap
+from zk_evm_tpu_torch.decoder import parse_block_prover_input
+from zk_evm_tpu_torch.entry import dryrun_multichip, entry
+from zk_evm_tpu_torch.parallel import (Mesh, commit_cap, make_mesh,
+                                       sharded_commit_cap)
+from zk_evm_tpu_torch.rpc import CachedProvider, HttpTransport
+from zk_evm_tpu_torch.rpc.fetch import native_block_prover_input
+from zk_evm_tpu_torch.rpc.loopback import serve_loopback, toy_native_block
 from zk_evm_tpu_torch.stark import (FriConfig, PolynomialBatch, Stark,
                                     StarkConfig, prove_all, prove_stark,
                                     verify_all, verify_stark)
@@ -274,6 +299,22 @@ CDK_CFG_KW = dict(rate_bits=1, cap_height=2, proof_of_work_bits=0,
                   num_query_rounds=1, arity_bits=2, final_poly_bits=2)
 CDK_SCENARIO_SHA256 = (
     "10d286ea5b1baf5a5dbd237ec15b0bfe1fc1a02007221a8a1d764ecef4301260")
+# path 10, one proof over several devices: meshes that name cuda:0 1, 2
+# and 4 times (and every card, on a host with more than one)
+MESH_SIZES = (1, 2, 4)
+MESH_COMMIT_SHAPE = (COMMIT_POLYS, 1 << 16)      # (polys, rows)
+MESH_CAP_HEIGHT = 4
+MESH_KECCAK_SHAPE = (logic.NUM_COLUMNS, 1 << 17)  # (columns, leaves)
+# sha256 over the little-endian bytes of the cap the JAX package's
+# `__graft_entry__.entry()` computes; tests/test_torch_parallel.py holds
+# the same constant
+ENTRY_CAP_SHA256 = (
+    "b0f3393b02e6e4420824c4e65c743ba068d2ec332c296abb4cac9e8e077612f8")
+# sha256 of json.dumps(obj, sort_keys=True) of the JAX package's
+# native_block_prover_input of the toy block (rpc/loopback.py, the case of
+# tests/test_rpc.py); tests/test_torch_rpc.py holds the same constant
+NATIVE_TOY_SHA256 = (
+    "a65989905ba91c079aee142de6d42c847b8f0980596f1403c736a72fdbfa4b71")
 KERNELS = {
     # name: (source, replaced TPU kernel, wrapper, launch counts, key)
     "poseidon_permute": ("zk_evm_tpu_torch/csrc/poseidon.cu",
@@ -774,7 +815,13 @@ def phase_chain_small(reference, dev) -> None:
         f"{cpu_s:.2f} s in the reference process)")
 
 
-def phase_chain_full(dev, smi: str, hasher: str = "poseidon") -> dict:
+def proof_sha256(proof) -> str:
+    return hashlib.sha256(proof_to_json(proof).encode()).hexdigest()
+
+
+def phase_chain_full(dev, smi: str, hasher: str = "poseidon") -> tuple:
+    """The 2^20-row chain proved and verified: (launches, sha256 of the
+    proof's JSON)."""
     t0 = time.perf_counter()
     traces, starks, ctls, optional = chain_inputs(CHAIN_WORDS)
     in_use = {name: traces[getattr(all_stark.Table, name)].shape
@@ -805,7 +852,7 @@ def phase_chain_full(dev, smi: str, hasher: str = "poseidon") -> dict:
     verify_all(starks, proof, ctls, cfg, optional_tables=optional)
     log(f"memory chain ({hasher}) verified by the port's verify_all in "
         f"{time.perf_counter() - t0:.2f} s")
-    return launches
+    return launches, proof_sha256(proof)
 
 
 def cdk_inputs(mutate=None, general_blocks: int = 1):
@@ -1610,6 +1657,174 @@ def phase_service(smi: str) -> tuple:
     return launches
 
 
+def launches_since(before: dict) -> dict:
+    now = read_counts()
+    return {name: now[name] - before[name] for name in now}
+
+
+def tree_launches(n_leaves: int, cap_height: int, k: int) -> tuple:
+    """(leaf-hash launches, level launches) of a tree over a k-entry
+    mesh: one leaf hash an entry, every entry's subtree levels down to
+    one root or its share of the cap, then the top levels on the first
+    entry."""
+    shard_levels, size = 0, n_leaves
+    while size > (1 << cap_height) and size > k:
+        shard_levels += 1
+        size //= 2
+    return k, k * shard_levels + (size.bit_length() - 1 - cap_height)
+
+
+def phase_mesh_caps(rng, dev, smi: str) -> None:
+    """sharded_commit_cap on each mesh: the cap equals commit_cap's, and
+    every entry hashed its leaves and its subtree (the dense pair's
+    launches of one call, exactly)."""
+    polys, n = MESH_COMMIT_SHAPE
+    values = random_gf(rng, (polys, n), dev)
+    want = commit_cap(values, cap_height=MESH_CAP_HEIGHT).to_u64()
+    single_ms = cuda_ms(lambda: commit_cap(values, cap_height=MESH_CAP_HEIGHT),
+                        reps=3)
+    log(f"commit_cap {polys} x 2^{n.bit_length() - 1} (cap "
+        f"{MESH_CAP_HEIGHT}): {single_ms:.3f} ms [{smi}]")
+    meshes = [(f"cuda:0 x {k}", Mesh([dev] * k)) for k in MESH_SIZES]
+    cards = torch.cuda.device_count()
+    if cards > 1 and cards & (cards - 1) == 0:
+        meshes.append((f"{cards} cards", make_mesh(cards)))
+    for name, mesh in meshes:
+        before = read_counts()
+        cap = sharded_commit_cap(values, mesh, cap_height=MESH_CAP_HEIGHT)
+        got = launches_since(before)
+        if not np.array_equal(cap.to_u64(), want):
+            raise AssertionError(f"sharded cap over {name} != commit_cap")
+        want_n = tree_launches(2 * n, MESH_CAP_HEIGHT, len(mesh))
+        if (got["poseidon_sponge"], got["poseidon_permute"]) != want_n:
+            raise AssertionError(
+                f"sharded cap over {name}: sponge, permute launches "
+                f"{got['poseidon_sponge']}, {got['poseidon_permute']}, "
+                f"want {want_n}")
+        ms = cuda_ms(lambda: sharded_commit_cap(
+            values, mesh, cap_height=MESH_CAP_HEIGHT), reps=3)
+        log(f"sharded_commit_cap over {name}: cap == commit_cap; {ms:.3f} ms "
+            f"beside commit_cap's {single_ms:.3f} ms; one call launches "
+            f"sponge {want_n[0]}, permute {want_n[1]} [{smi}]")
+
+
+def phase_mesh_keccak(rng, dev, smi: str) -> None:
+    cols, rows = MESH_KECCAK_SHAPE
+    leaves = random_gf(rng, (cols, rows), dev).T
+    want = build_commitment_tree(leaves, MESH_CAP_HEIGHT, "keccak").cap_u64()
+    single_ms = cuda_ms(lambda: build_commitment_tree(
+        leaves, MESH_CAP_HEIGHT, "keccak"), reps=3)
+    mesh = Mesh([dev] * 2)
+    before = read_counts()
+    tree = build_commitment_tree(leaves, MESH_CAP_HEIGHT, "keccak", mesh=mesh)
+    got = launches_since(before)["keccak_rows"]
+    if not np.array_equal(tree.cap_u64(), want):
+        raise AssertionError("keccak tree over cuda:0 x 2 != single tree")
+    if got != sum(tree_launches(rows, MESH_CAP_HEIGHT, 2)):
+        raise AssertionError(f"keccak tree over cuda:0 x 2: {got} launches")
+    ms = cuda_ms(lambda: build_commitment_tree(
+        leaves, MESH_CAP_HEIGHT, "keccak", mesh=mesh), reps=3)
+    log(f"keccak tree {cols} x 2^{rows.bit_length() - 1} over cuda:0 x 2: "
+        f"cap == single-device cap; {ms:.3f} ms beside the single tree's "
+        f"{single_ms:.3f} ms; one call launches {got} [{smi}]")
+
+
+def phase_mesh_chain(dev, smi: str, chain_launches: dict,
+                     chain_sha: str) -> None:
+    """The 2^20-row chain of path 3 proved twice more: its three trace
+    commitments on three CUDA streams at once (`parallel_commits`), and
+    every commitment over a two-entry mesh of cuda:0. Both proofs are
+    path 3's byte for byte; the parallel run launches exactly what path 3
+    launched."""
+    traces, starks, ctls, _ = chain_inputs(CHAIN_WORDS)
+    cfg = StarkConfig.standard_fast_config()
+    runs = {"parallel_commits": dict(device=dev, parallel_commits=True),
+            "mesh cuda:0 x 2": dict(mesh=Mesh([dev] * 2))}
+    for name, kw in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        tree = TimingTree(f"prove memory chain, {name}")
+        with tree:
+            proof = prove_all(starks, traces, ctls, cfg, **kw)
+        got = launches_since(before)
+        if proof_sha256(proof) != chain_sha:
+            raise AssertionError(f"memory chain, {name}: proof != path 3's")
+        check_launches(got, "poseidon", f"the memory chain, {name}")
+        if name == "parallel_commits" and got != chain_launches:
+            raise AssertionError(f"launches under parallel_commits {got} != "
+                                 f"the sequential run's {chain_launches}")
+        log(f"memory chain 2^{CHAIN_LOG_ROWS} standard config, {name}: "
+            f"proof == path 3's [{smi}]:")
+        print_tree(tree)
+        log(f"  {tree.root.elapsed:9.3f} s  total; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches {got}")
+
+
+def phase_mesh_entry(dev) -> None:
+    fn, args = entry()
+    cap = fn(*args)
+    if cap.device.type != "cuda":
+        raise AssertionError(f"entry() ran on {cap.device}")
+    sha = hashlib.sha256(np.ascontiguousarray(
+        GF(cap).to_u64(), dtype="<u8").tobytes()).hexdigest()
+    if sha != ENTRY_CAP_SHA256:
+        raise AssertionError("entry() cap != the JAX package's")
+    log(f"entry() on {cap.device}: cap {tuple(cap.shape)} == the JAX "
+        f"package's")
+    # make_mesh raises on a host with one card: the mesh that names it
+    # twice is passed on purpose
+    mesh = make_mesh(2) if torch.cuda.device_count() >= 2 \
+        else Mesh([dev] * 2)
+    dryrun_multichip(2, device_type="cuda", mesh=mesh)
+
+
+def phase_mesh_rpc() -> None:
+    """The native fetcher through HttpTransport against a JSON-RPC node
+    on 127.0.0.1 serving the toy block."""
+    node, facts = toy_native_block()
+    server, url = serve_loopback(node)
+    try:
+        t0 = time.perf_counter()
+        obj = native_block_prover_input(
+            CachedProvider(HttpTransport(url, timeout=60)), 1,
+            checkpoint_block_number=0)
+        seconds = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+    sha = hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+    if sha != NATIVE_TOY_SHA256:
+        raise AssertionError("native fetch over HTTP != the JAX package's")
+    bpi = parse_block_prover_input(obj)
+    if bpi.trie_roots_before().state_root != facts["root"]:
+        raise AssertionError("decoded state root != the node's")
+    storage = bpi.pre_state.storage[native.keccak256(facts["sender"])]
+    if storage.root_hash() != facts["storage_root"]:
+        raise AssertionError("decoded storage root != the node's")
+    log(f"rpc: native_block_prover_input over HTTP from {url} in "
+        f"{seconds:.2f} s ({len(node.requests)} requests): == the JAX "
+        f"package's object; state and storage roots == the node's")
+
+
+def phase_mesh(rng, dev, smi: str, chain_launches: dict,
+               chain_sha: str) -> dict:
+    """Path 10, one proof over several devices; returns its launches."""
+    torch.cuda.synchronize()
+    zero_counts()
+    phase_mesh_caps(rng, dev, smi)
+    phase_mesh_keccak(rng, dev, smi)
+    phase_mesh_chain(dev, smi, chain_launches, chain_sha)
+    phase_mesh_entry(dev)
+    phase_mesh_rpc()
+    launches = read_counts()
+    for name in ("poseidon_permute", "poseidon_sponge", "keccak_rows"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched in path 10")
+    return launches
+
+
 ROW_SHAPES = {
     "keccak_rows": (2 << LOGIC_LOG_ROWS, logic.NUM_COLUMNS),
     "poseidon_permute": (PERMUTE_BATCHES[-1],),
@@ -1669,20 +1884,25 @@ def main() -> None:
     clock_of("commit", phase_commit, rng, dev, smi)
     clock_of("logic", phase_logic_full, rng, dev, smi)
     bench_launches = clock_of("bench", phase_bench, smi)
-    clock_of("chain", phase_chain_full, dev, smi)
+    chain_launches, chain_sha = clock_of("chain", phase_chain_full, dev, smi)
     clock_of("logic", phase_logic_full, rng, dev, smi, "keccak")
-    keccak_launches = clock_of("chain", phase_chain_full, dev, smi, "keccak")
+    keccak_launches, _ = clock_of("chain", phase_chain_full, dev, smi,
+                                  "keccak")
     block_launches = clock_of("block", phase_block, dev, smi)
     witness_launches = clock_of("witness", phase_witness, smi)
     service_launches = clock_of("service", phase_service, smi)
     clock_of("wrap small", phase_wrap_small, dev)
     wrap_launches = clock_of("wrap", phase_wrap, dev, smi)
+    mesh_launches = clock_of("mesh", phase_mesh, rng, dev, smi,
+                             chain_launches, chain_sha)
     log(clock_of.summary())
     log(f"dense launches: simple-transfer block {block_launches}, chain "
         f"wrap {wrap_launches}, witness chain {witness_launches}, service "
         f"{service_launches}")
     log(f"keccak launches: memory chain under hasher keccak "
         f"{keccak_launches}")
+    log(f"path 10 (one proof over several devices) launches: "
+        f"{mesh_launches}")
     times.update({("keccak_rows", shape): row
                   for shape, row in keccak_times.items()})
     errs["keccak_rows"] = keccak_err
@@ -1698,7 +1918,8 @@ def main() -> None:
                         "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None,
-                        "shape": list(shape)})
+                        "shape": list(shape),
+                        "mesh_launches": mesh_launches[name]})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

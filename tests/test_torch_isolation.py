@@ -33,7 +33,7 @@ from zk_evm_tpu_torch.field import GF
 from zk_evm_tpu_torch.hash import (keccak_device, poseidon, poseidon_dense,
                                    poseidon_pallas)
 from zk_evm_tpu_torch.merkle import build_commitment_tree
-from zk_evm_tpu_torch.parallel import commit_cap
+from zk_evm_tpu_torch.parallel import commit_cap, make_mesh, sharded_commit_cap
 rng = np.random.default_rng(5)
 m = GF.from_u64(rng.integers(0, 2**63, size=(16, 13), dtype=np.uint64))
 poseidon.hash_rows(m)
@@ -47,8 +47,40 @@ poseidon_pallas.permute_pallas(GF.from_u64(
 poseidon_pallas.sponge_pallas(m)
 build_commitment_tree(m, cap_height=1, hasher="keccak")
 keccak_device.hash_rows(m.T)
+sharded_commit_cap(GF.from_u64(rng.integers(0, 2**63, size=(9, 16),
+                                            dtype=np.uint64)),
+                   make_mesh(4, device_type="cpu"), cap_height=1)
+build_commitment_tree(m, cap_height=1, hasher="keccak",
+                      mesh=make_mesh(2, device_type="cpu"))
 print(json.dumps([poseidon_dense.LAUNCHES, poseidon_pallas.LAUNCHES,
                   keccak_device.LAUNCHES]))
+"""
+
+
+REFUSALS = """
+import json, sys, torch
+import numpy as np
+from zk_evm_tpu_torch.field import GF
+from zk_evm_tpu_torch.parallel import Mesh, make_mesh
+from zk_evm_tpu_torch.stark.poly_batch import PolynomialBatch
+have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+values = GF.from_u64(np.arange(32, dtype=np.uint64).reshape(2, 16))
+calls = {
+    "more cards": lambda: make_mesh(have + 1),
+    "three entries": lambda: Mesh(["cpu"] * 3),
+    "keccak_host": lambda: PolynomialBatch.from_values(
+        values, hasher="keccak_host", mesh=make_mesh(2, device_type="cpu")),
+}
+raised = {}
+for name, call in calls.items():
+    try:
+        call()
+        raised[name] = None
+    except ValueError as e:
+        raised[name] = str(e)
+print(json.dumps({"raised": raised, "loaded": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                  "zk_evm_tpu"))}))
 """
 
 
@@ -78,7 +110,14 @@ def test_port_imports_no_jax():
                  "zk_evm_tpu_torch.tables.memory_chain",
                  "zk_evm_tpu_torch.tables.cpu",
                  "zk_evm_tpu_torch.tables.keccak_sponge",
+                 "zk_evm_tpu_torch.parallel",
                  "zk_evm_tpu_torch.parallel.sharded",
+                 "zk_evm_tpu_torch.entry",
+                 "zk_evm_tpu_torch.rpc",
+                 "zk_evm_tpu_torch.rpc.provider",
+                 "zk_evm_tpu_torch.rpc.block_interval",
+                 "zk_evm_tpu_torch.rpc.fetch",
+                 "zk_evm_tpu_torch.rpc.loopback",
                  "zk_evm_tpu_torch.bench",
                  "zk_evm_tpu_torch.__main__",
                  "zk_evm_tpu_torch.native",
@@ -140,6 +179,16 @@ def test_cpu_calls_launch_no_kernel():
         + [{"rows": 0}]
 
 
+def test_mesh_refusals_do_not_fall_back():
+    """A mesh of more cards than the host has, a mesh whose size is not a
+    power of two, and the numpy Keccak tree over a mesh each raise."""
+    out = run_fresh(REFUSALS)
+    assert out["loaded"] == []
+    assert "CUDA devices" in out["raised"]["more cards"]
+    assert "power of two" in out["raised"]["three entries"]
+    assert "keccak_host" in out["raised"]["keccak_host"]
+
+
 # Host modules the port carries as jax-free copies; each is the reference's
 # file byte for byte, so the two cannot drift apart unnoticed. The modules
 # the port had to edit (`hash/host_poseidon.py`, `stark/verifier.py`,
@@ -174,6 +223,8 @@ VERBATIM_COPIES = [
     "decoder/type1.py", "decoder/type2.py", "decoder/world.py",
     "decoder/inputs.py", "decoder/observer.py", "smt/__init__.py",
     "mpt/builder.py",
+    "rpc/__init__.py", "rpc/provider.py", "rpc/block_interval.py",
+    "rpc/fetch.py",
 ]
 
 # Copies that differ from the reference only in the lines listed, and why.

@@ -8,6 +8,11 @@ source rebuilds and an unchanged one is reused. `build_all` starts one
 nvcc per source at once. ptxas's report of each kernel's registers,
 shared memory and spills is kept beside its library (`ptxas_report`).
 Nothing here runs at import time.
+
+The kernels are used from several threads at once (`prove_all` with
+`parallel_commits`): `FIRST_USE` serialises every first use (the build,
+the load, a wrapper's constant upload to a device), and `count_launch`
+keeps the wrappers' launch counts exact.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from functools import lru_cache
 from pathlib import Path
 
@@ -25,6 +31,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# held by every first use of a library; re-entrant, because a wrapper's
+# constant upload loads its library under it
+FIRST_USE = threading.RLock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: dict, key: str) -> None:
+    """Add one to a wrapper's launch count; exact under threads."""
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 def nvcc_path() -> str:
@@ -127,8 +143,14 @@ def kernel_resources(report: str) -> dict:
     return out
 
 
-@lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu if its library is missing, then load it."""
+    """Compile csrc/<name>.cu if its library is missing, then load it;
+    one thread at a time."""
+    with FIRST_USE:
+        return _load(name)
+
+
+@lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
     _finish_build(name, _start_build(name))
     return ctypes.CDLL(str(library_path(name)))

@@ -27,7 +27,6 @@ POWER_OF_TWO_GENERATOR = 1753635133440165772
 
 EPSILON = 0xFFFFFFFF              # 2^64 mod p
 M32 = 0xFFFFFFFF
-M16 = 0xFFFF
 _SIGN = -(1 << 63)                # xor-ing this maps unsigned order to signed
 _P_I64 = P - (1 << 64)            # p's bit pattern as an int64
 
@@ -72,33 +71,19 @@ def reduce128(n0: torch.Tensor, n1: torch.Tensor,
     return _canon(s)
 
 
-def _mul_wide(a: torch.Tensor, b: torch.Tensor):
-    """Full 64 x 64 -> 128 product as four 32-bit limbs (LSB first)."""
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b mod p. The product's low 64 bits are the wrapped int64
+    product; its high 64 bits come from four 32 x 32 partial products."""
     a0 = a & M32
     a1 = (a >> 32) & M32
-    b0 = b & M16
-    b1 = (b >> 16) & M16
-    b2 = (b >> 32) & M16
-    b3 = (b >> 48) & M16
-    c0 = a0 * b0                            # weight 2^0,  < 2^48
-    c16 = a0 * b1                           # weight 2^16
-    c32 = a0 * b2 + a1 * b0                 # weight 2^32, < 2^49
-    c48 = a0 * b3 + a1 * b1                 # weight 2^48
-    c64 = a1 * b2                           # weight 2^64
-    c80 = a1 * b3                           # weight 2^80
-    w = c0 + ((c16 & M16) << 16)
-    r0 = w & M32
-    w = (w >> 32) + (c16 >> 16) + c32 + ((c48 & M16) << 16)
-    r1 = w & M32
-    w = (w >> 32) + (c48 >> 16) + c64 + ((c80 & M16) << 16)
-    r2 = w & M32
-    r3 = (w >> 32) + (c80 >> 16)
-    return r0, r1, r2, r3
-
-
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    r0, r1, r2, r3 = _mul_wide(a, b)
-    return reduce128(r0 | (r1 << 32), r2, r3)
+    b0 = b & M32
+    b1 = (b >> 32) & M32
+    p00 = a0 * b0                           # each < 2^64 as a u64 pattern
+    p01 = a0 * b1
+    p10 = a1 * b0
+    mid = ((p00 >> 32) & M32) + (p01 & M32) + (p10 & M32)   # < 3 * 2^32
+    hi = a1 * b1 + ((p01 >> 32) & M32) + ((p10 >> 32) & M32) + (mid >> 32)
+    return reduce128(a * b, hi & M32, (hi >> 32) & M32)
 
 
 def square(a: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ from functools import lru_cache
 
 import torch
 
+from .. import cuda_build
 from ..field import GF
 from ..field import goldilocks as gl
 from .keccak_np import _R, _RC
@@ -91,9 +92,13 @@ def keccak_rows_plain(x: GF) -> GF:
     return GF(gl._canon(s[:, :4]))      # p subtracted where >= p
 
 
-@lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    from .. import cuda_build
+    with cuda_build.FIRST_USE:
+        return _bind()
+
+
+@lru_cache(maxsize=1)
+def _bind() -> ctypes.CDLL:
     lib = cuda_build.load("keccak")
     c, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.zk_keccak_rows.argtypes = [c, i64, i64, i64, i64, c, c]
@@ -126,7 +131,7 @@ def keccak_rows(x: GF) -> GF:
                                  v.stride(1), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"keccak kernel launch: CUDA error {err}")
-    LAUNCHES["rows"] += 1
+    cuda_build.count_launch(LAUNCHES, "rows")
     return GF(out)
 
 

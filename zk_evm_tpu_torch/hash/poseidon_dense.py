@@ -30,8 +30,13 @@ _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
 
 
-@lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
+    with cuda_build.FIRST_USE:
+        return _bind()
+
+
+@lru_cache(maxsize=1)
+def _bind() -> ctypes.CDLL:
     lib = cuda_build.load("poseidon")
     lib.zk_poseidon_mds_coef.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.zk_poseidon_mds_coef.restype = ctypes.c_int
@@ -52,10 +57,16 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-@lru_cache(maxsize=None)
 def _ready(device_index: int) -> ctypes.CDLL:
     """The library with the round constants and the fast partial-round
-    constants uploaded to this device."""
+    constants uploaded to this device (once a device, one thread at a
+    time: a second card gets its own constants)."""
+    with cuda_build.FIRST_USE:
+        return _upload(device_index)
+
+
+@lru_cache(maxsize=None)
+def _upload(device_index: int) -> ctypes.CDLL:
     lib = _library()
     rcs = np.ascontiguousarray(pp.round_constants_np())
     fast = poseidon_fast.fast_constants_np()
@@ -96,7 +107,7 @@ def permute_dense(state: GF) -> GF:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _check(lib.zk_poseidon_permute(x.data_ptr(), out.data_ptr(),
                                        x.shape[0], stream), "permute launch")
-    LAUNCHES["permute"] += 1
+    cuda_build.count_launch(LAUNCHES, "permute")
     return GF(out)
 
 
@@ -120,5 +131,5 @@ def sponge_dense(matrix_t: GF) -> GF:
                                       x.stride(1), x.stride(0),
                                       out.data_ptr(), stream),
                "sponge launch")
-    LAUNCHES["sponge"] += 1
+    cuda_build.count_launch(LAUNCHES, "sponge")
     return GF(out)

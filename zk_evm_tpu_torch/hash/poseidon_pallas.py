@@ -33,8 +33,13 @@ _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
 
 
-@lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
+    with cuda_build.FIRST_USE:
+        return _bind()
+
+
+@lru_cache(maxsize=1)
+def _bind() -> ctypes.CDLL:
     lib = cuda_build.load("poseidon_pallas")
     lib.zk_poseidon_pallas_mds_coef.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.zk_poseidon_pallas_mds_coef.restype = ctypes.c_int
@@ -56,10 +61,16 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-@lru_cache(maxsize=None)
 def _ready(device_index: int) -> ctypes.CDLL:
     """The library with the round constants and the fast partial-round
-    constants uploaded to this device."""
+    constants uploaded to this device (once a device, one thread at a
+    time: a second card gets its own constants)."""
+    with cuda_build.FIRST_USE:
+        return _upload(device_index)
+
+
+@lru_cache(maxsize=None)
+def _upload(device_index: int) -> ctypes.CDLL:
     lib = _library()
     rcs = np.ascontiguousarray(pp.round_constants_np())
     fast = poseidon_fast.fast_constants_np()
@@ -103,7 +114,7 @@ def permute_pallas(state: GF) -> GF:
         _check(lib.zk_poseidon_pallas_permute(
             planes.data_ptr(), out.data_ptr(), x.shape[0], planes.stride(0),
             stream), "permute launch")
-    LAUNCHES["permute"] += 1
+    cuda_build.count_launch(LAUNCHES, "permute")
     return GF(out.t().contiguous())
 
 
@@ -130,5 +141,5 @@ def sponge_pallas(matrix_t: GF) -> GF:
         _check(lib.zk_poseidon_pallas_sponge(
             x.data_ptr(), n_rows, n_cols, x.stride(0), out.data_ptr(),
             stream), "sponge launch")
-    LAUNCHES["sponge"] += 1
+    cuda_build.count_launch(LAUNCHES, "sponge")
     return GF(out.t().contiguous())

@@ -1,18 +1,22 @@
-from .tree import MerkleTree, build_tree, build_tree_keccak_device
+from .tree import (MerkleTree, build_tree, build_tree_from_blocks,
+                   build_tree_keccak_device, build_tree_mesh)
 from . import host as host_merkle
 from . import keccak_host as keccak_merkle
 from . import paths
 
 
 def build_commitment_tree(leaves, cap_height: int = 4,
-                          hasher: str = "poseidon"):
+                          hasher: str = "poseidon", mesh=None):
     """Commitment-tree dispatch on StarkConfig.hasher: the Poseidon tree
     (sponge and permute kernels on CUDA), the Keccak tree on the leaves'
     device ("keccak": the keccak256 rows kernel on CUDA; zk_evm's
     KeccakGoldilocksConfig twin, tests/simple_transfer.rs:24,30), or the
     host-numpy Keccak tree ("keccak_host", the bit-exactness ground
     truth), which takes CPU leaves only: on the card the Keccak tree is
-    "keccak"."""
+    "keccak". With a `mesh` (`parallel.Mesh`) the row blocks are hashed
+    over its devices (`build_tree_mesh`); "keccak_host" refuses one."""
+    if mesh is not None:
+        return build_tree_mesh(leaves, mesh, cap_height, hasher)
     if hasher == "keccak":
         return build_tree_keccak_device(leaves, cap_height)
     if hasher == "keccak_host":
@@ -45,5 +49,6 @@ def paths_verifier(hasher: str = "poseidon"):
 
 
 __all__ = ["MerkleTree", "build_tree", "build_commitment_tree",
+           "build_tree_from_blocks", "build_tree_mesh",
            "path_verifier", "paths_verifier", "host_merkle",
            "keccak_merkle"]

@@ -9,6 +9,12 @@ keccak256 rows kernel.
 Leaf index convention: callers pass leaves in the order they will be opened
 (for LDE oracles that is bit-reversed evaluation order, matching the FRI
 folding layout; see ntt.lde_bitrev).
+
+Over a mesh of k = 2^j devices (`parallel.Mesh`), block s of the leaves,
+[s n/k, (s+1) n/k), is a whole subtree: each device hashes its block and
+compresses its subtree on its own, then the levels are gathered in order
+onto the first device, which compresses the top levels down to the cap
+(`build_tree_from_blocks`). The tree is the same as on one device.
 """
 
 from __future__ import annotations
@@ -61,18 +67,65 @@ class MerkleTree:
         return self.leaves.take(idx, axis=0).to_u64()
 
 
-def _build_levels(leaves: GF, cap_height: int) -> list[GF]:
-    levels = [poseidon.hash_rows(leaves)]
-    while levels[-1].shape[0] > (1 << cap_height):
-        cur = levels[-1]
-        levels.append(poseidon.compress(cur[0::2], cur[1::2]))
-    return levels
+def _poseidon_level(level: GF) -> GF:
+    return poseidon.compress(level[0::2], level[1::2])
+
+
+def _hashers(hasher: str):
+    """(leaf hash, one level's compression) of a device tree."""
+    if hasher == "poseidon":
+        return poseidon.hash_rows, _poseidon_level
+    if hasher == "keccak":
+        from ..hash import keccak_device
+        return keccak_device.hash_rows, keccak_device.compress
+    raise ValueError(f'hasher {hasher!r} builds no tree on devices: the '
+                     f'"keccak_host" tree is one numpy array on the host, '
+                     f'and takes no mesh (use "keccak")')
 
 
 def build_tree(leaves: GF, cap_height: int = 4) -> MerkleTree:
+    return build_tree_from_blocks([leaves], leaves, cap_height, "poseidon")
+
+
+def build_tree_from_blocks(blocks: list[GF], leaves: GF, cap_height: int = 4,
+                           hasher: str = "poseidon") -> MerkleTree:
+    """The tree over `leaves` (n, leaf_len) from its row blocks: blocks[s]
+    holds rows [s n/k, (s+1) n/k) on its own device, k = len(blocks) a
+    power of two. Each block's subtree is built on its device, down to
+    one root or to its share of the cap; the levels are gathered in
+    order onto `leaves`' device and compressed there down to the cap.
+    With one block this is the single-device tree."""
+    k = len(blocks)
     n = leaves.shape[0]
+    assert k & (k - 1) == 0 and n % k == 0, (n, k)
     assert n & (n - 1) == 0 and n >= (1 << cap_height), (n, cap_height)
-    return MerkleTree(leaves, _build_levels(leaves, cap_height), cap_height)
+    hash_rows, compress = _hashers(hasher)
+    shards = [[hash_rows(b)] for b in blocks]
+    size = n                       # entries in the current level, all shards
+    while size > (1 << cap_height) and size > k:
+        for levels in shards:
+            levels.append(compress(levels[-1]))
+        size //= 2
+    dev = leaves.device
+    levels = [shards[0][i] if k == 1 else
+              GF.concatenate([GF(s[i].v.to(dev)) for s in shards])
+              for i in range(len(shards[0]))]
+    while levels[-1].shape[0] > (1 << cap_height):
+        levels.append(compress(levels[-1]))
+    return MerkleTree(leaves, levels, cap_height)
+
+
+def build_tree_mesh(leaves: GF, mesh, cap_height: int = 4,
+                    hasher: str = "poseidon") -> MerkleTree:
+    """The tree over `leaves` with its row blocks hashed over `mesh`
+    (a power-of-two count of leaves fewer than the mesh uses its first
+    n entries); levels and leaves on `mesh[0]`."""
+    leaves = GF(leaves.v.to(mesh[0]))
+    k = min(len(mesh), leaves.shape[0])
+    step = leaves.shape[0] // k
+    blocks = [GF(leaves.v[s * step:(s + 1) * step].to(mesh[s]))
+              for s in range(k)]
+    return build_tree_from_blocks(blocks, leaves, cap_height, hasher)
 
 
 def build_tree_keccak_device(leaves: GF, cap_height: int = 4) -> MerkleTree:
@@ -81,10 +134,4 @@ def build_tree_keccak_device(leaves: GF, cap_height: int = 4) -> MerkleTree:
     MerkleTree interface of the Poseidon tree; the engine of
     StarkConfig.hasher="keccak" (zk_evm's KeccakGoldilocksConfig,
     tests/simple_transfer.rs:24,30)."""
-    from ..hash import keccak_device
-    n = leaves.shape[0]
-    assert n & (n - 1) == 0 and n >= (1 << cap_height), (n, cap_height)
-    levels = [keccak_device.hash_rows(leaves)]
-    while levels[-1].shape[0] > (1 << cap_height):
-        levels.append(keccak_device.compress(levels[-1]))
-    return MerkleTree(leaves, levels, cap_height)
+    return build_tree_from_blocks([leaves], leaves, cap_height, "keccak")

@@ -129,11 +129,23 @@ def fft(coeffs: GF) -> GF:
     return bit_reverse(_pease(coeffs, inverse=False))
 
 
+def fft_bitrev(coeffs: GF) -> GF:
+    """coeffs (natural) -> values in bit-reversed order."""
+    return _pease(coeffs, inverse=False)
+
+
 def ifft(values: GF) -> GF:
     """values (natural) -> coeffs (natural): (1/n) * NTT_{w^-1}(values)."""
     n = values.shape[-1]
     coeffs = bit_reverse(_pease(values, inverse=True))
     return coeffs * GF.const(host.finv(n), device=values.device)
+
+
+def coset_fft(coeffs: GF, shift: int = COSET_SHIFT) -> GF:
+    """coeffs (natural) -> values on shift*<g_n> (natural)."""
+    n = coeffs.shape[-1]
+    return bit_reverse(_pease(coeffs * powers(shift, n, coeffs.device),
+                              inverse=False))
 
 
 def lde_from_coeffs_bitrev(coeffs: GF, rate_bits: int = 1,

@@ -1,3 +1,3 @@
-from .sharded import commit_cap
+from .sharded import Mesh, commit_cap, make_mesh, sharded_commit_cap
 
-__all__ = ["commit_cap"]
+__all__ = ["Mesh", "commit_cap", "make_mesh", "sharded_commit_cap"]

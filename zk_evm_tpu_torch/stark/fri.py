@@ -169,11 +169,15 @@ def prove_fri(oracles: list[PolynomialBatch],
               degree_bits: int,
               challenger: Challenger,
               config: FriConfig,
-              hasher: str = "poseidon") -> FriProof:
+              hasher: str = "poseidon",
+              mesh=None) -> FriProof:
     """Produce a batched FRI opening proof for `batches` over `oracles`.
 
     Callers must have observed all opening values and drawn `alpha` from the
-    challenger already (transcript step 6 in DESIGN.md)."""
+    challenger already (transcript step 6 in DESIGN.md). With a `mesh`
+    (`parallel.Mesh`) each commit-phase tree hashes its row blocks over
+    the mesh's devices; the folds and the grind stay on the oracles'
+    device."""
     log_m = degree_bits + config.rate_bits
     m = 1 << log_m
     shift = host.MULT_GENERATOR
@@ -223,7 +227,7 @@ def prove_fri(oracles: list[PolynomialBatch],
         arity = 1 << ab
         leaves = _ext_leaves(cur, arity)
         cap_h = min(config.cap_height, cur_log_m - ab)
-        tree = build_commitment_tree(leaves, cap_h, hasher)
+        tree = build_commitment_tree(leaves, cap_h, hasher, mesh=mesh)
         cap_ints = [[int(x) for x in row] for row in tree.cap_u64()]
         commit_trees.append(tree)
         commit_caps.append(cap_ints)

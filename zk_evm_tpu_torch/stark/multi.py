@@ -1,10 +1,10 @@
 """Multi-table proving: the AllStark layer.
 
-Twin of the JAX package's `stark/multi.py` on the sequential commit path.
-Transcript: all trace caps observed in table order (zero caps for unused
-optional tables), then the public inputs, then the global CTL challenge
-set, then each table proves under the shared sequential challenger (each
-proof snapshots init_challenger_state). A block proof's public inputs are
+Twin of the JAX package's `stark/multi.py`. Transcript: all trace caps
+observed in table order (zero caps for unused optional tables), then the
+public inputs, then the global CTL challenge set, then each table proves
+under the shared sequential challenger (each proof snapshots
+init_challenger_state). A block proof's public inputs are
 its PublicValues' elements (`PublicValues.to_elements()`). The global
 verifier additionally cross-checks the CTL running-sum totals across
 tables.
@@ -12,18 +12,22 @@ tables.
 
 from __future__ import annotations
 
+import contextlib
+import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..field import GF, host
 from ..challenger import Challenger
-from ..timing import timed
+from ..timing import record, timed
 from .config import StarkConfig
 from .poly_batch import PolynomialBatch
 from .stark import Stark
 from .proof import StarkProof
-from .prover import prove_stark, resolve_device
+from .prover import prove_stark, resolve_device, same_device
 from .verifier import verify_stark
 from . import lookup
 
@@ -51,7 +55,8 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
               public_inputs: list[int] | None = None,
               public_values=None,
               table_public_inputs: dict[int, list[int]] | None = None,
-              device=None) -> AllProof:
+              device=None, parallel_commits: bool = False,
+              devices: list | None = None, mesh=None) -> AllProof:
     """Prove every in-use table under one transcript, on `device` (CUDA
     when not given). traces[i] may be None for unused optional tables
     (zero cap observed, no proof). `public_values` (a PublicValues)
@@ -61,8 +66,28 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
     (e.g. the Rvm's PUB bindings) without re-observing them: the global
     observation already covers them when the caller passes the same
     values in `public_inputs`. A table's preprocessed columns are
-    committed in their own oracle, not with its trace."""
-    dev = resolve_device(device)
+    committed in their own oracle, not with its trace.
+
+    `parallel_commits`: every trace commitment runs before any
+    transcript step, so they are independent; each runs in a thread of
+    its own on a CUDA stream of its own (on `devices[i % len(devices)]`
+    when `devices` is given, and table i is then proved on the device
+    that committed it). The table proofs then run in turn under the one
+    transcript, as before.
+    `mesh` (`parallel.Mesh`): every table's `prove_stark` runs over it,
+    and so, without `parallel_commits`, does its trace commitment; the
+    tables are proved on `mesh[0]`. The proof is the same on any of
+    these paths."""
+    if mesh is not None:
+        if device is not None and not same_device(device, mesh[0]):
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh[0]}")
+        device = mesh[0]
+        if devices and not all(same_device(d, mesh[0]) for d in devices):
+            raise ValueError("with a mesh every table is proved on the "
+                             "mesh's first device; devices names others")
+    # parallel commits over `devices` put each table on a device of its own
+    dev = None if parallel_commits and devices else resolve_device(device)
     if public_values is not None:
         assert public_inputs is None, \
             "pass public_values OR raw public_inputs, not both"
@@ -71,20 +96,22 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
     table_in_use = [t is not None for t in traces]
 
     challenger = Challenger()
-    batches: list[PolynomialBatch | None] = []
-    caps = []
-    for stark, trace in zip(starks, traces):
-        if trace is None:
-            batches.append(None)
-            caps.append(_zero_cap(config))
-            continue
-        with timed(f"commit {stark.name} trace"):
-            b = PolynomialBatch.from_values(
-                GF.from_u64(trace[stark.num_preprocessed:], dev),
-                rate_bits=config.rate_bits,
-                cap_height=config.cap_height, hasher=config.hasher)
-        batches.append(b)
-        caps.append(b.cap_ints())
+    if parallel_commits:
+        batches = _commit_in_parallel(starks, traces, config, dev, devices)
+    else:
+        batches = []
+        for stark, trace in zip(starks, traces):
+            if trace is None:
+                batches.append(None)
+                continue
+            with timed(f"commit {stark.name} trace"):
+                batches.append(PolynomialBatch.from_values(
+                    GF.from_u64(trace[stark.num_preprocessed:], dev),
+                    rate_bits=config.rate_bits,
+                    cap_height=config.cap_height, hasher=config.hasher,
+                    mesh=mesh))
+    caps = [b.cap_ints() if b is not None else _zero_cap(config)
+            for b in batches]
     observe_global(challenger, caps, public_inputs)
     challenges = lookup.get_challenge_set(challenger, config.num_challenges)
 
@@ -99,11 +126,79 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
                 stark, trace, config, challenger,
                 public_inputs=(table_public_inputs or {}).get(t),
                 challenges=challenges, ctl_groups=groups,
-                observe_trace_cap=False, trace_batch=batches[t]))
+                observe_trace_cap=False, trace_batch=batches[t],
+                mesh=mesh))
         batches[t] = None       # free the table's device buffers
     return AllProof(proofs=proofs, table_in_use=table_in_use,
                     public_inputs=list(public_inputs),
                     public_values=public_values)
+
+
+def table_devices(n: int, dev, devices) -> list[torch.device]:
+    """The device of each of `n` tables under `parallel_commits`:
+    devices[i % len(devices)], or `dev` for all. A `cuda` device with no
+    index is the caller's current card; it is indexed here, because a
+    pool thread's current card is card 0."""
+    out = []
+    for i in range(n):
+        d = torch.device(devices[i % len(devices)] if devices else dev)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    return out
+
+
+@contextlib.contextmanager
+def _side_stream(d: torch.device, prover_stream):
+    """Run the body with `d`'s card current, on a new stream that first
+    waits for `prover_stream`, and synchronise that stream at the end;
+    on a CPU device, run it as it is."""
+    if d.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(d):
+        side = torch.cuda.Stream(device=d)
+        side.wait_stream(prover_stream)
+        with torch.cuda.stream(side):
+            yield
+        side.synchronize()
+
+
+def _commit_in_parallel(starks, traces, config: StarkConfig, dev,
+                        devices) -> list[PolynomialBatch | None]:
+    """Every trace commitment at once, one thread and one CUDA stream a
+    table, each thread on its table's card. A batch allocated on a side
+    stream is read later on the prover's stream (the current stream of
+    its device here): each side stream is synchronised before its batch
+    is used, and every tensor the batch keeps is recorded on the
+    prover's stream, so that the caching allocator does not hand its
+    memory out while that stream may still read it."""
+    devs = table_devices(len(starks), dev, devices)
+    prover_streams = {d: torch.cuda.current_stream(d)
+                      for d in set(devs) if d.type == "cuda"}
+
+    def commit(i: int):
+        trace = traces[i]
+        if trace is None:
+            return None, 0.0
+        d = devs[i]
+        t0 = time.perf_counter()
+        with _side_stream(d, prover_streams.get(d)):
+            batch = PolynomialBatch.from_values(
+                GF.from_u64(trace[starks[i].num_preprocessed:], d),
+                rate_bits=config.rate_bits,
+                cap_height=config.cap_height, hasher=config.hasher)
+        if d.type == "cuda":
+            for t in batch.tensors():
+                t.record_stream(prover_streams[d])
+        return batch, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(starks)) as pool:
+        results = list(pool.map(commit, range(len(starks))))
+    for stark, (batch, seconds) in zip(starks, results):
+        if batch is not None:
+            record(f"commit {stark.name} trace", seconds)
+    return [batch for batch, _ in results]
 
 
 def verify_all(starks: list[Stark], all_proof: AllProof,

@@ -148,7 +148,7 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
                 ctl_groups=None,
                 observe_trace_cap: bool = True,
                 trace_batch: PolynomialBatch | None = None,
-                device=None) -> StarkProof:
+                device=None, mesh=None) -> StarkProof:
     """Prove one table whose (num_columns, n) uint64 trace is `trace`, on
     `device` (CUDA when not given). The proof depends only on the trace,
     config and public inputs: it is the same on every device.
@@ -156,7 +156,19 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
     In multi-table mode (`prove_all`) the caller commits the trace,
     observes every cap globally, draws the shared CTL challenge set, and
     passes `challenges`, `ctl_groups`, `observe_trace_cap=False` and
-    `trace_batch` in; the proof then runs on that batch's device."""
+    `trace_batch` in; the proof then runs on that batch's device.
+
+    `mesh` (`parallel.Mesh`): every commitment the proof makes (trace,
+    aux, quotient chunks, the FRI trees) goes over the mesh's devices;
+    the stages between them run on `mesh[0]`, which `device`, if given,
+    must name. The proof is the same as on one device. (The JAX
+    package's `shard_rows` layout annotation has no counterpart: the
+    mesh takes its place.)"""
+    if mesh is not None:
+        if device is not None and not same_device(device, mesh[0]):
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh[0]}")
+        device = mesh[0]
     public_inputs = public_inputs or []
     groups = list(ctl_groups or [])
     lookups = stark.lookups()
@@ -172,7 +184,8 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
             trace_batch = PolynomialBatch.from_values(
                 GF.from_u64(trace[npre:], resolve_device(device)),
                 rate_bits=config.rate_bits,
-                cap_height=config.cap_height, hasher=config.hasher)
+                cap_height=config.cap_height, hasher=config.hasher,
+                mesh=mesh)
     elif device is not None and not same_device(device,
                                                 trace_batch.lde.device):
         raise ValueError(f"device {device} differs from the trace batch's "
@@ -215,7 +228,8 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
         with timed("commit aux"):
             aux_batch = PolynomialBatch.from_values(
                 aux_gf, rate_bits=config.rate_bits,
-                cap_height=config.cap_height, hasher=config.hasher)
+                cap_height=config.cap_height, hasher=config.hasher,
+                mesh=mesh)
             aux_cap = aux_batch.cap_ints()
         challenger.observe_cap(aux_cap)
 
@@ -228,7 +242,7 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
     with timed("commit quotient"):
         quotient_batch = PolynomialBatch.from_coeffs(
             chunks, rate_bits=config.rate_bits,
-            cap_height=config.cap_height, hasher=config.hasher)
+            cap_height=config.cap_height, hasher=config.hasher, mesh=mesh)
         quotient_cap = quotient_batch.cap_ints()
     challenger.observe_cap(quotient_cap)
 
@@ -303,7 +317,7 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
     with timed("FRI"):
         fri_proof = fri.prove_fri(oracles, batches, alpha, degree_bits,
                                   challenger, fri_cfg,
-                                  hasher=config.hasher)
+                                  hasher=config.hasher, mesh=mesh)
 
     return StarkProof(degree_bits=degree_bits, trace_cap=trace_cap,
                       aux_cap=aux_cap, quotient_cap=quotient_cap,
