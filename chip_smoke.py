@@ -6,11 +6,16 @@ Builds the four hand-written CUDA Poseidon kernels and the keccak256
 rows kernel from zk_evm_tpu_torch/csrc/ (one nvcc per source, started
 together), logs each kernel's registers and spills as ptxas reported
 them, and holds each Poseidon kernel against its plain PyTorch version,
-the python-int host twin and the python-int twin of the fast
-partial-round form the kernels run (`hash/poseidon_fast.py`), on random
-states and on states made of one boundary value in every lane. Then it
-drives ten paths of the port, each with the kernels' launch counts set
-to 0 just before and read just after:
+the python-int host twin, the python-int twin of the fast partial-round
+form the kernels run (`hash/poseidon_fast.py`) and that of the planes
+kernels' 32-bit arithmetic (`hash/goldilocks32.py`), on random states and
+on states made of one boundary value in every lane. The sponges are held
+at widths whose n_cols % 8 runs from 0 to 7, at row counts that are and
+are not multiples of the planes sponge's tile, and, for the planes
+sponge, on views it reads in place or through its aligned copy: an odd
+row stride, a column-sliced view with a base off 16 bytes, one 16 bytes
+on. Then it drives ten paths of the port, each with the kernels' launch
+counts set to 0 just before and read just after:
 
 1. LogicStark: a 2^12-row proof on CUDA equals the CPU proof byte for
    byte; a 2^16-row, 523-column LogicStark is proved at the standard
@@ -168,8 +173,9 @@ from zk_evm_tpu_torch import bench, cuda_build, metrics, native, poseidon_ab
 from zk_evm_tpu_torch.bench import cuda_ms, random_gf
 from zk_evm_tpu_torch.challenger import Challenger
 from zk_evm_tpu_torch.field import GF, host
-from zk_evm_tpu_torch.hash import (host_poseidon, keccak_device, keccak_np,
-                                   poseidon, poseidon_dense, poseidon_fast,
+from zk_evm_tpu_torch.hash import (goldilocks32, host_poseidon,
+                                   keccak_device, keccak_np, poseidon,
+                                   poseidon_dense, poseidon_fast,
                                    poseidon_pallas)
 from zk_evm_tpu_torch.merkle import build_commitment_tree, keccak_host
 from zk_evm_tpu_torch.merkle.keccak_tree import (_digest_reduce,
@@ -221,6 +227,15 @@ SEED = 0
 PERMUTE_BATCHES = (1, 1000, 1 << 18)        # 2^18: the PoW grind batch
 SPONGE_COLS = (5, 6, 8, 13, 17, 32, 64, 523)
 SPONGE_ROWS = (1, 1000, 4096)
+# every n_cols % 8 from 1 to 7 beside SPONGE_COLS' 0, 1, 3, 5 and 6, on
+# row counts that are not multiples of the planes sponge's 128-row tile:
+# 1000 is read in place, 1001 (odd) through the aligned copy
+RAGGED_COLS = (9, 10, 11, 12, 14, 15)
+RAGGED_ROWS = (1000, 1001)
+# views (ld, first column, n_rows) of a (VIEW_COLS, ld) matrix; the
+# row stride is odd, or the base is 8 bytes off 16, or 16 bytes on
+VIEW_COLS = 19
+VIEW_SLICES = ((2001, 3, 997), (2000, 1, 999), (2000, 2, 1000))
 COMMIT_POLYS = 64
 COMMIT_CHECK_LOG_ROWS = 12
 COMMIT_LOG_ROWS = 15                        # the commit-throughput shape
@@ -452,6 +467,8 @@ def phase_permute(rng, dev) -> dict:
             twin = host_poseidon.permute_py(row)
             if poseidon_fast.permute_fast(row) != twin:
                 raise AssertionError(f"fast-form twin != host twin, row {r}")
+            if goldilocks32.permute_gl32(row) != twin:
+                raise AssertionError(f"32-bit twin != host twin, row {r}")
             twins.append(twin)
         for name in PERMUTES:
             got = KERNELS[name][2](x)
@@ -463,32 +480,54 @@ def phase_permute(rng, dev) -> dict:
                 if [int(v) for v in out[r]] != twin:
                     raise AssertionError(f"{name} row {r} != host twin")
     log(f"permute: dense and planes kernels == plain == host twin == "
-        f"fast-form twin (exact) at B = {PERMUTE_BATCHES}, boundary "
-        f"values {BOUNDARY} in every lane")
+        f"fast-form twin == 32-bit twin (exact) at B = {PERMUTE_BATCHES}, "
+        f"boundary values {BOUNDARY} in every lane")
     return err
+
+
+def check_sponges(err: dict, mt: GF, names, what: str) -> None:
+    """The sponge kernels `names` on the (n_cols, n_rows) matrix mt against
+    the plain version on every leaf and the host twin on leaves 0 and -1
+    (exact); the largest error is kept in err."""
+    m = mt.to_u64()
+    want = poseidon.hash_rows_plain(mt.T)
+    twins = [host_poseidon.hash_or_noop([int(v) for v in m[:, r]])
+             for r in (0, -1)]
+    for name in names:
+        got = KERNELS[name][2](mt)
+        err[name] = max(err[name], max_abs_err(got, want))
+        if err[name]:
+            raise AssertionError(f"{name} kernel != plain at {what}")
+        out = got.to_u64()
+        if [[int(v) for v in out[r]] for r in (0, -1)] != twins:
+            raise AssertionError(f"{name} at {what} != host twin")
 
 
 def phase_sponge(rng, dev) -> dict:
     err = dict.fromkeys(SPONGES, 0)
-    for n_cols in SPONGE_COLS:
-        for n_rows in SPONGE_ROWS:
-            m = rng.integers(0, P, size=(n_cols, n_rows), dtype=np.uint64)
-            k = min(n_cols, len(BOUNDARY))
-            m[:k, 0] = BOUNDARY[:k]             # leaf 0: boundary values
-            mt = GF.from_u64(m, dev)
-            want = poseidon.hash_rows_plain(mt.T)
-            twin = host_poseidon.hash_or_noop([int(v) for v in m[:, 0]])
-            for name in SPONGES:
-                got = KERNELS[name][2](mt)
-                err[name] = max(err[name], max_abs_err(got, want))
-                if err[name]:
-                    raise AssertionError(
-                        f"{name} kernel != plain at {n_cols}x{n_rows}")
-                if [int(v) for v in got.to_u64()[0]] != twin:
-                    raise AssertionError(
-                        f"{name} {n_cols} cols != host twin")
+    shapes = [(c, r) for c in SPONGE_COLS for r in SPONGE_ROWS] \
+        + [(c, r) for c in RAGGED_COLS for r in RAGGED_ROWS]
+    for n_cols, n_rows in shapes:
+        m = rng.integers(0, P, size=(n_cols, n_rows), dtype=np.uint64)
+        k = min(n_cols, len(BOUNDARY))
+        m[:k, 0] = BOUNDARY[:k]                 # leaf 0: boundary values
+        check_sponges(err, GF.from_u64(m, dev), SPONGES,
+                      f"{n_cols}x{n_rows}")
+    for ld, first, n_rows in VIEW_SLICES:
+        base = GF.from_u64(rng.integers(0, P, size=(VIEW_COLS, ld),
+                                        dtype=np.uint64), dev)
+        view = GF(base.v[:, first:first + n_rows])
+        copied = poseidon_pallas.needs_aligned_copy(view.v)
+        if copied != (ld % 2 == 1 or first % 2 == 1):
+            raise AssertionError(f"aligned copy {copied} for ld {ld}, "
+                                 f"first column {first}")
+        check_sponges(err, view, ("poseidon_pallas_sponge",),
+                      f"a {VIEW_COLS}x{n_rows} view of ld {ld} from column "
+                      f"{first}")
     log(f"sponge: dense and planes kernels == plain == host twin (exact) at "
-        f"n_cols {SPONGE_COLS}, n_rows {SPONGE_ROWS}")
+        f"n_cols {SPONGE_COLS} x n_rows {SPONGE_ROWS}, n_cols {RAGGED_COLS} "
+        f"x n_rows {RAGGED_ROWS}; planes kernel on {VIEW_COLS}-column views "
+        f"(ld, first column, n_rows) {VIEW_SLICES}")
     return err
 
 

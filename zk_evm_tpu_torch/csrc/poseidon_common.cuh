@@ -18,6 +18,13 @@
 // multiply into 128 bits, reduced with 2^64 = 2^32 - 1 and 2^96 = -1
 // (mod p); sums of general products accumulate in 192 bits and reduce
 // once a word.
+//
+// The round code takes its field arithmetic as a policy class F: F::mul,
+// F::sqr, F::mul_add, F::reduce_small (lo + h0 2^64 for h0 < 2^32, the
+// MDS's reduction) and F::Acc (a sum of general products). `U64Arith`
+// below, 64-bit products with compare-and-select corrections, is the
+// dense kernels' (poseidon.cu); the planes kernels pass their own
+// (goldilocks32.cuh).
 
 #pragma once
 
@@ -104,7 +111,7 @@ __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
 }
 
 // A sum of general products in 192 bits: lo + hi * 2^64 + top * 2^128.
-struct Acc {
+struct AccU64 {
     uint64_t lo = 0, hi = 0;
     uint32_t top = 0;
 
@@ -126,11 +133,33 @@ struct Acc {
     }
 };
 
+// The arithmetic of the dense kernels: the functions above.
+struct U64Arith {
+    using Acc = AccU64;
+
+    static __device__ __forceinline__ uint64_t reduce_small(uint64_t lo,
+                                                            uint32_t h0) {
+        return reduce128(lo, h0);
+    }
+    static __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
+        return gl_mul(a, b);
+    }
+    static __device__ __forceinline__ uint64_t sqr(uint64_t a) {
+        return gl_mul(a, a);
+    }
+    static __device__ __forceinline__ uint64_t mul_add(uint64_t a,
+                                                       uint64_t b,
+                                                       uint64_t c) {
+        return gl_mul_add(a, b, c);
+    }
+};
+
+template <class F>
 __device__ __forceinline__ uint64_t sbox7(uint64_t x) {
-    const uint64_t x2 = gl_mul(x, x);
-    const uint64_t x3 = gl_mul(x2, x);
-    const uint64_t x6 = gl_mul(x3, x3);
-    return gl_mul(x6, x);
+    const uint64_t x2 = F::sqr(x);
+    const uint64_t x3 = F::mul(x2, x);
+    const uint64_t x6 = F::sqr(x3);
+    return F::mul(x6, x);
 }
 
 // The MDS on 16-bit limb planes, plus a canonical constant vector
@@ -138,7 +167,8 @@ __device__ __forceinline__ uint64_t sbox7(uint64_t x) {
 // accumulates the twelve small-constant products of each of its four limb
 // planes in 32 bits (coefficients sum to at most 264, plus a 16-bit limb
 // of the constant: below 2^25), then one carry chain across the planes
-// and one reduce128.
+// and one F::reduce_small.
+template <class F>
 __device__ __forceinline__ void mds_limb_planes(uint64_t s[W], int post) {
     uint32_t limb[4][W];
 #pragma unroll
@@ -178,7 +208,7 @@ __device__ __forceinline__ void mds_limb_planes(uint64_t s[W], int post) {
         const uint32_t t3 = s3 & MASK16;
         const uint64_t lo = static_cast<uint64_t>(t0 | (t1 << 16))
             | (static_cast<uint64_t>(t2 | (t3 << 16)) << 32);
-        s[r] = reduce128(lo, s3 >> 16);
+        s[r] = F::reduce_small(lo, s3 >> 16);
     }
 }
 
@@ -186,13 +216,14 @@ __device__ __forceinline__ void mds_limb_planes(uint64_t s[W], int post) {
 // are already added: S-boxes, then the MDS with the next constant vector
 // folded in (after round 3 the fast first constant layer; after round 29
 // the zero row).
+template <class F>
 __device__ __forceinline__ void full_rounds(uint64_t s[W], int first) {
 #pragma unroll 1
     for (int rnd = first; rnd < first + HALF_FULL_ROUNDS; ++rnd) {
 #pragma unroll
-        for (int j = 0; j < W; ++j) s[j] = sbox7(s[j]);
-        mds_limb_planes(s, rnd == HALF_FULL_ROUNDS - 1 ? FAST_FIRST
-                                                      : (rnd + 1) * W);
+        for (int j = 0; j < W; ++j) s[j] = sbox7<F>(s[j]);
+        mds_limb_planes<F>(s, rnd == HALF_FULL_ROUNDS - 1 ? FAST_FIRST
+                                                         : (rnd + 1) * W);
     }
 }
 
@@ -203,11 +234,12 @@ __device__ __forceinline__ void add_round_constants(uint64_t s[W], int rnd) {
 
 // The 22 partial rounds in fast form, on a state whose first constant
 // layer is already added.
+template <class F>
 __device__ __forceinline__ void partial_rounds(uint64_t s[W]) {
     uint64_t t[W - 1];
 #pragma unroll
     for (int i = 0; i < W - 1; ++i) {
-        Acc acc;
+        typename F::Acc acc;
 #pragma unroll
         for (int j = 0; j < W - 1; ++j)
             acc.mac(CONSTANTS[FAST_INITIAL + i * (W - 1) + j], s[j + 1]);
@@ -218,30 +250,31 @@ __device__ __forceinline__ void partial_rounds(uint64_t s[W]) {
 #pragma unroll 1
     for (int r = 0; r < N_PARTIAL_ROUNDS; ++r) {
         const uint64_t x = s[0];
-        const uint64_t x2 = gl_mul(x, x);
-        const uint64_t x3 = gl_mul(x2, x);
-        const uint64_t x6 = gl_mul(x3, x3);
-        const uint64_t s0 = gl_mul_add(x6, x, CONSTANTS[FAST_PARTIAL + r]);
-        Acc acc;
+        const uint64_t x2 = F::sqr(x);
+        const uint64_t x3 = F::mul(x2, x);
+        const uint64_t x6 = F::sqr(x3);
+        const uint64_t s0 = F::mul_add(x6, x, CONSTANTS[FAST_PARTIAL + r]);
+        typename F::Acc acc;
         acc.mac(s0, MDS_00);
 #pragma unroll
         for (int j = 0; j < W - 1; ++j)
             acc.mac(CONSTANTS[FAST_W_HATS + r * (W - 1) + j], s[j + 1]);
 #pragma unroll
         for (int i = 1; i < W; ++i)
-            s[i] = gl_mul_add(s0, CONSTANTS[FAST_VS + r * (W - 1) + i - 1],
+            s[i] = F::mul_add(s0, CONSTANTS[FAST_VS + r * (W - 1) + i - 1],
                               s[i]);
         s[0] = acc.reduce();
     }
 }
 
 // The 30 rounds on one state held in registers; the result is lazy.
+template <class F = U64Arith>
 __device__ __forceinline__ void permute_state(uint64_t s[W]) {
     add_round_constants(s, 0);
-    full_rounds(s, 0);
-    partial_rounds(s);
+    full_rounds<F>(s, 0);
+    partial_rounds<F>(s);
     add_round_constants(s, HALF_FULL_ROUNDS + N_PARTIAL_ROUNDS);
-    full_rounds(s, HALF_FULL_ROUNDS + N_PARTIAL_ROUNDS);
+    full_rounds<F>(s, HALF_FULL_ROUNDS + N_PARTIAL_ROUNDS);
 }
 
 // Words 0..width-1 of a chunk whose k-th word sits at p[k * stride].

@@ -3,9 +3,9 @@
 
 `permute_pallas` replaces the JAX package's `poseidon_pallas._permute_kernel`
 and `sponge_pallas` its `poseidon_pallas._sponge_kernel`; the source file
-says what each kernel carries over from the TPU design (the (12, B)
-structure-of-arrays state and the 16-bit limb-plane MDS) and what bounds
-it on the card.
+says what bounds each kernel on the card and what its design does about
+it (a 32-bit Goldilocks product, csrc/goldilocks32.cuh, whose python-int
+twin is `goldilocks32.py`; the sponge's chunks staged by TMA).
 
 Each wrapper takes a GF array. On a CPU tensor it runs the plain PyTorch
 version (`poseidon.permute_plain` / `poseidon.hash_rows_plain`, which
@@ -96,6 +96,30 @@ def _cuda_int64(x: torch.Tensor, what: str) -> None:
         raise TypeError(f"{what}: expected int64, got {x.dtype}")
 
 
+def needs_aligned_copy(x: torch.Tensor) -> bool:
+    """Whether the sponge kernel's tensor map cannot read the (n_cols,
+    n_rows) int64 matrix x in place: its rows must be contiguous and must
+    not overlap, its row stride `ld` even (a global stride that is a
+    multiple of 16 bytes) and its base 16-byte aligned. The LDEs of the
+    main path are contiguous and powers of two wide, so they are read in
+    place."""
+    ld, step = x.stride()
+    return (step != 1 or ld < x.shape[1] or ld % 2 != 0
+            or x.data_ptr() % 16 != 0)
+
+
+def aligned_planes(x: torch.Tensor) -> torch.Tensor:
+    """A copy of the (n_cols, n_rows) matrix x that the tensor map reads in
+    place: a fresh allocation (16-byte aligned) with an even row stride,
+    n_rows rounded up to even."""
+    n_cols, n_rows = x.shape
+    buf = torch.empty((n_cols, n_rows + n_rows % 2), dtype=x.dtype,
+                      device=x.device)
+    out = buf[:, :n_rows]
+    out.copy_(x)
+    return out
+
+
 def permute_pallas(state: GF) -> GF:
     """Poseidon permutation of a (B, 12) GF state, any B. The kernel works
     on the (12, B) planes: the state goes in transposed and comes back
@@ -122,8 +146,9 @@ def sponge_pallas(matrix_t: GF) -> GF:
     """Digests of the COLUMNS of a (n_cols, n_rows) GF matrix, n_cols > 4,
     any n_rows: returns (n_rows, 4), equal to
     poseidon.hash_rows_plain(matrix_t.T). The matrix is read in place when
-    its rows are contiguous (the LDE's layout); the kernel writes (4,
-    n_rows) digest planes, which are transposed on return."""
+    the tensor map can read it (`needs_aligned_copy`; the LDE's layout),
+    else from one aligned copy; the kernel writes (4, n_rows) digest
+    planes, which are transposed on return."""
     x = matrix_t.v
     if x.ndim != 2 or x.shape[0] <= 4:
         raise ValueError(
@@ -131,8 +156,8 @@ def sponge_pallas(matrix_t: GF) -> GF:
     if x.device.type == "cpu":
         return poseidon.hash_rows_plain(matrix_t.T)
     _cuda_int64(x, "sponge")
-    if x.stride(1) != 1:
-        x = x.contiguous()
+    if needs_aligned_copy(x):
+        x = aligned_planes(x)
     n_cols, n_rows = x.shape
     out = torch.empty((4, n_rows), dtype=torch.int64, device=x.device)
     lib = _ready(x.device.index)

@@ -7,15 +7,23 @@ with the package's nvcc flags (one nvcc per source, all started
 together) into `build/ab/<name>/`; this checkout's own `csrc` is the tree
 named `change`, the first argument the tree named `parent`. For each tree
 it prints each kernel's registers and spills (ptxas) and the SASS
-instructions one permutation issues (`cuobjdump -sass` of the permute
-kernels: the instructions outside loops, plus each loop's body times its
-trip count, the round loops 4, 22 and 4). Then it launches every tree's
-kernels through their C interfaces on the same inputs, checks that all
-trees give the same words, and times each kernel at the main path's
-shapes by CUDA events, trees in turn forward then backward (parent,
-change, change, parent), beside the bound of `bench.poseidon_bound_ms`.
-The planes kernels are timed on their own (12, B) and (n_cols, n_rows)
-layouts, without the wrappers' transposes.
+instructions one permutation issues (`cuobjdump -sass`): each round loop's
+body times its trip count (4, 22 and 4), plus, in a permute kernel, the
+instructions outside loops and, in a sponge kernel, the rest of the chunk
+loop's body (a chunk's loads and barriers; a leaf's set-up and stores are
+left out). Beside the total it prints the mix by opcode class
+(`mix`: IMAD.WIDE, IMAD.HI, IMAD.X, IMAD.MOV, plain IMAD, IADD3, LOP3,
+...), the number that says which pipe still holds a kernel back, and the
+kernel's code size in instructions (`sass_static`). Then it
+launches every tree's kernels through their C interfaces on the same
+inputs, checks that all trees give the same words, and times each kernel
+at the main path's shapes by CUDA events, trees in turn forward then
+backward (parent, change, change, parent), beside the bound of
+`bench.poseidon_bound_ms`. The planes kernels are timed on their own
+(12, B) and (n_cols, n_rows) layouts, without the wrappers' transposes.
+The sponge's C signature (m, n_rows, n_cols, ld, out, stream) is the same
+in every tree; the TMA sponge also wants an even ld and a 16-byte-aligned
+base, which the contiguous inputs here have.
 
 Prints one JSON object a line and writes them all to
 `chiprun_out/poseidon_ab.json`. Needs one CUDA device.
@@ -40,7 +48,8 @@ from .hash import poseidon_params as pp
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = ("poseidon", "poseidon_pallas")
 PERMUTE_SHAPES = ((1 << 18,),)
-SPONGE_SHAPES = ((30, 1 << 21), (523, 1 << 17), (64, 1 << 16))
+SPONGE_SHAPES = ((30, 1 << 21), (523, 1 << 17), (64, 1 << 16),
+                 (2431, 1 << 15))
 LOOP_TRIPS = (4, 22, 4)
 KERNEL_SYMBOLS = {
     "poseidon_permute": "poseidon_permute_kernel",
@@ -50,6 +59,7 @@ KERNEL_SYMBOLS = {
 }
 INTEGER_OPS = ("IMAD", "IADD3", "IADD", "ISETP", "LOP3", "LOP", "SHF", "SEL",
                "LEA", "PRMT", "IMNMX", "IABS", "SHL", "SHR", "BMSK")
+IMAD_FORMS = ("WIDE", "HI", "X", "MOV", "SHL", "IADD")
 REPS = 5
 _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
@@ -109,29 +119,55 @@ def sass_functions(so: Path) -> dict:
     return funcs
 
 
+def opcode_class(op: str) -> str:
+    """IMAD split by its form (WIDE, HI, X, MOV, SHL, IADD; plain IMAD
+    else); any other opcode by its name without modifiers."""
+    parts = op.split(".")
+    if parts[0] == "IMAD" and len(parts) > 1 and parts[1] in IMAD_FORMS:
+        return f"IMAD.{parts[1]}"
+    return parts[0]
+
+
 def per_permutation(instrs: list) -> dict:
-    """SASS instructions one permutation issues: outside loops once, each
-    loop body LOOP_TRIPS times, the loops taken in address order."""
+    """SASS instructions one permutation issues. The round loops are the
+    three largest innermost loops (backward branches), weighted by
+    LOOP_TRIPS in address order; the chunk loop, if one encloses them (a
+    sponge), bounds what else counts once; a permute counts everything
+    outside the round loops once. Smaller loops (barrier waits) count
+    once."""
     loops = sorted((target, addr) for addr, op, target in instrs
                    if target is not None and target < addr)
-    if len(loops) != len(LOOP_TRIPS) or any(
-            a[1] >= b[0] for a, b in zip(loops, loops[1:])):
-        return {"loops": [[hex(t), hex(a)] for t, a in loops],
-                "total": None, "integer": None, "imad": None}
-    counts = {"total": 0, "integer": 0, "imad": 0}
+    inner = [a for a in loops
+             if not any(b != a and a[0] <= b[0] and b[1] <= a[1]
+                        for b in loops)]
+    rounds = sorted(sorted(inner, key=lambda l: l[1] - l[0])[-3:])
+    outer = [a for a in loops if a not in rounds and all(
+        a[0] <= r[0] and r[1] <= a[1] for r in rounds)]
+    chunk = min(outer, key=lambda l: l[1] - l[0]) if outer else None
+    shown = {"loops": [[hex(t), hex(a)] for t, a in loops],
+             "chunk_loop": chunk and [hex(chunk[0]), hex(chunk[1])]}
+    if len(rounds) != len(LOOP_TRIPS):
+        return {**shown, "total": None, "integer": None, "imad": None}
+    counts = {"total": 0, "integer": 0, "imad": 0, "imad_wide": 0}
+    mix = {}
     for addr, op, target in instrs:
         if target is not None and target == addr or op == "NOP":
             continue                       # the end-of-kernel self-branch
+        if chunk and not chunk[0] <= addr <= chunk[1]:
+            continue                       # a leaf's set-up and stores
         weight = 1
-        for (lo, hi), trips in zip(loops, LOOP_TRIPS):
+        for (lo, hi), trips in zip(rounds, LOOP_TRIPS):
             if lo <= addr <= hi:
                 weight = trips
         base = op.split(".")[0]
+        cls = opcode_class(op)
         counts["total"] += weight
         counts["integer"] += weight * (base in INTEGER_OPS)
         counts["imad"] += weight * (base == "IMAD")
-    counts["loops"] = [[hex(t), hex(a)] for t, a in loops]
-    return counts
+        counts["imad_wide"] += weight * (cls == "IMAD.WIDE")
+        mix[cls] = mix.get(cls, 0) + weight
+    counts["mix"] = dict(sorted(mix.items(), key=lambda kv: -kv[1]))
+    return {**counts, **shown}
 
 
 def load(so: Path) -> ctypes.CDLL:
@@ -223,7 +259,8 @@ def main(argv: list) -> None:
             for mangled, res in cuda_build.kernel_resources(report).items():
                 kernel = kernel_of(mangled)
                 rec = {"tree": tree, "kernel": kernel, **res}
-                if kernel and kernel.endswith("permute"):
+                if kernel in sass:
+                    rec["sass_static"] = len(sass[kernel])
                     rec["sass_per_permutation"] = per_permutation(
                         sass[kernel])
                 emit(rec, records)
