@@ -115,8 +115,15 @@ counts set to 0 just before and read just after:
    single-device tree; path 3's 2^20-row chain is proved again with its
    three trace commitments on three CUDA streams at once
    (`prove_all(parallel_commits=True)`, launching exactly what path 3
-   launched) and over a two-entry mesh, each proof path 3's byte
-   for byte; `entry()` runs on the card (its cap is the JAX package's)
+   launched), and over meshes of two and four entries (and of every
+   card, on a host with more than one), each proof path 3's byte for
+   byte. Over a mesh the stages between the commitments run on its row
+   blocks, each block on a CUDA stream of its own: the
+   block counts (`parallel.blocks.BLOCK_RUNS`, which the CPU tests read
+   too) must show aux, the quotient, FRI's G and its first fold run k
+   times a table on blocks of n/k or m/k entries; each run's aux,
+   quotient, openings and FRI seconds are logged beside path 3's, with
+   its launches and peak; `entry()` runs on the card (its cap is the JAX package's)
    and `dryrun_multichip(2)` passes over two cards, or, on a host with
    one, over a mesh that names cuda:0 twice; the native RPC
    fetcher, through `HttpTransport` against a JSON-RPC node on
@@ -194,7 +201,8 @@ from zk_evm_tpu_torch.recursion.tape_lib import sponge_hash
 from zk_evm_tpu_torch.recursion.verify_tape import verify_stark_tape
 from zk_evm_tpu_torch.decoder import parse_block_prover_input
 from zk_evm_tpu_torch.entry import dryrun_multichip, entry
-from zk_evm_tpu_torch.parallel import (Mesh, commit_cap, make_mesh,
+from zk_evm_tpu_torch.parallel import (Mesh, block_runs, commit_cap,
+                                       make_mesh, reset_block_runs,
                                        sharded_commit_cap)
 from zk_evm_tpu_torch.rpc import CachedProvider, HttpTransport
 from zk_evm_tpu_torch.rpc.fetch import native_block_prover_input
@@ -320,6 +328,11 @@ MESH_SIZES = (1, 2, 4)
 MESH_COMMIT_SHAPE = (COMMIT_POLYS, 1 << 16)      # (polys, rows)
 MESH_CAP_HEIGHT = 4
 MESH_KECCAK_SHAPE = (logic.NUM_COLUMNS, 1 << 17)  # (columns, leaves)
+MESH_CHAIN_SIZES = (2, 4)       # entries of cuda:0 the 2^20 chain runs over
+# the timed phases of a table proof between its commitments, by the name
+# `prove_stark` times them under
+STAGES = {"aux": "generate aux columns", "quotient": "evaluate quotient",
+          "openings": "openings", "FRI": "FRI"}
 # sha256 over the little-endian bytes of the cap the JAX package's
 # `__graft_entry__.entry()` computes; tests/test_torch_parallel.py holds
 # the same constant
@@ -858,9 +871,23 @@ def proof_sha256(proof) -> str:
     return hashlib.sha256(proof_to_json(proof).encode()).hexdigest()
 
 
+def stage_seconds(tree: TimingTree) -> dict:
+    """Seconds of each of STAGES, summed over the tree (every table)."""
+    out = dict.fromkeys(STAGES, 0.0)
+    names = {v: k for k, v in STAGES.items()}
+
+    def walk(node):
+        if node.name in names:
+            out[names[node.name]] += node.elapsed
+        for child in node.children:
+            walk(child)
+    walk(tree.root)
+    return out
+
+
 def phase_chain_full(dev, smi: str, hasher: str = "poseidon") -> tuple:
     """The 2^20-row chain proved and verified: (launches, sha256 of the
-    proof's JSON)."""
+    proof's JSON, seconds of each of STAGES)."""
     t0 = time.perf_counter()
     traces, starks, ctls, optional = chain_inputs(CHAIN_WORDS)
     in_use = {name: traces[getattr(all_stark.Table, name)].shape
@@ -891,7 +918,7 @@ def phase_chain_full(dev, smi: str, hasher: str = "poseidon") -> tuple:
     verify_all(starks, proof, ctls, cfg, optional_tables=optional)
     log(f"memory chain ({hasher}) verified by the port's verify_all in "
         f"{time.perf_counter() - t0:.2f} s")
-    return launches, proof_sha256(proof)
+    return launches, proof_sha256(proof), stage_seconds(tree)
 
 
 def cdk_inputs(mutate=None, general_blocks: int = 1):
@@ -1608,7 +1635,9 @@ def phase_service(smi: str) -> tuple:
         rc, out = run_cli(["worker", "--queue", str(queue), "--max-jobs",
                            str(SERVICE_JOBS), "--idle-timeout",
                            str(SERVICE_IDLE_S), "--name", "chip-smoke",
-                           "--device", "cuda"])
+                           "--device", "cuda", "--witness-dir",
+                           str(SERVICE_DIR), "--output-dir",
+                           str(SERVICE_DIR)])
         worker_s = time.perf_counter() - t0
         launches = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1768,20 +1797,49 @@ def phase_mesh_keccak(rng, dev, smi: str) -> None:
         f"{single_ms:.3f} ms; one call launches {got} [{smi}]")
 
 
-def phase_mesh_chain(dev, smi: str, chain_launches: dict,
-                     chain_sha: str) -> None:
-    """The 2^20-row chain of path 3 proved twice more: its three trace
+def check_split(k: int, tables: int, n: int) -> dict:
+    """The block counts of a chain proof over a k-entry mesh: aux ran k
+    blocks a table of n/k rows, the quotient and G k blocks a table of
+    m/k coset points, and the first fold of each table's FRI k blocks of
+    m/k; returns each stage's {entries a block: blocks}."""
+    m = 2 * n                                   # rate_bits 1
+    want = {"aux": n // k, "quotient": m // k, "G": m // k}
+    for stage, entries in want.items():
+        if block_runs(stage) != {entries: k * tables}:
+            raise AssertionError(f"{stage} over {k} entries ran blocks "
+                                 f"{block_runs(stage)}, want "
+                                 f"{{{entries}: {k * tables}}}")
+    if block_runs("fold").get(m // k) != k * tables:
+        raise AssertionError(f"the first folds over {k} entries: "
+                             f"{block_runs('fold')}")
+    return {stage: block_runs(stage)
+            for stage in ("aux", "quotient", "openings", "G", "fold")}
+
+
+def phase_mesh_chain(dev, smi: str, chain_launches: dict, chain_sha: str,
+                     chain_stages: dict) -> None:
+    """The 2^20-row chain of path 3 proved again: its three trace
     commitments on three CUDA streams at once (`parallel_commits`), and
-    every commitment over a two-entry mesh of cuda:0. Both proofs are
-    path 3's byte for byte; the parallel run launches exactly what path 3
-    launched."""
+    over meshes of two and four entries of cuda:0 (and of every card, on
+    a host with more than one), where every commitment and the stages
+    between them run over the mesh's row blocks. Every proof is path 3's
+    byte for byte; the parallel run launches exactly what path 3
+    launched; each mesh run's block counts show the split stages."""
     traces, starks, ctls, _ = chain_inputs(CHAIN_WORDS)
+    tables = sum(t is not None for t in traces)
     cfg = StarkConfig.standard_fast_config()
-    runs = {"parallel_commits": dict(device=dev, parallel_commits=True),
-            "mesh cuda:0 x 2": dict(mesh=Mesh([dev] * 2))}
+    runs = {"parallel_commits": dict(device=dev, parallel_commits=True)}
+    for k in MESH_CHAIN_SIZES:
+        runs[f"mesh cuda:0 x {k}"] = dict(mesh=Mesh([dev] * k))
+    cards = torch.cuda.device_count()
+    if cards > 1 and cards & (cards - 1) == 0:
+        runs[f"mesh of {cards} cards"] = dict(mesh=make_mesh(cards))
+    log(f"memory chain 2^{CHAIN_LOG_ROWS}, path 3 stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in chain_stages.items()))
     for name, kw in runs.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_block_runs()
         before = read_counts()
         tree = TimingTree(f"prove memory chain, {name}")
         with tree:
@@ -1793,12 +1851,22 @@ def phase_mesh_chain(dev, smi: str, chain_launches: dict,
         if name == "parallel_commits" and got != chain_launches:
             raise AssertionError(f"launches under parallel_commits {got} != "
                                  f"the sequential run's {chain_launches}")
+        split = {}
+        if "mesh" in kw:
+            split = check_split(len(kw["mesh"]), tables,
+                                1 << CHAIN_LOG_ROWS)
         log(f"memory chain 2^{CHAIN_LOG_ROWS} standard config, {name}: "
             f"proof == path 3's [{smi}]:")
         print_tree(tree)
+        stages = stage_seconds(tree)
         log(f"  {tree.root.elapsed:9.3f} s  total; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"launches {got}")
+        log(f"  stage seconds ({name} / path 3): "
+            + ", ".join(f"{k} {stages[k]:.3f} / {chain_stages[k]:.3f}"
+                        for k in STAGES)
+            + (f"; blocks run {{entries: blocks}} {split}"
+               if split else ""))
 
 
 def phase_mesh_entry(dev) -> None:
@@ -1848,13 +1916,13 @@ def phase_mesh_rpc() -> None:
 
 
 def phase_mesh(rng, dev, smi: str, chain_launches: dict,
-               chain_sha: str) -> dict:
+               chain_sha: str, chain_stages: dict) -> dict:
     """Path 10, one proof over several devices; returns its launches."""
     torch.cuda.synchronize()
     zero_counts()
     phase_mesh_caps(rng, dev, smi)
     phase_mesh_keccak(rng, dev, smi)
-    phase_mesh_chain(dev, smi, chain_launches, chain_sha)
+    phase_mesh_chain(dev, smi, chain_launches, chain_sha, chain_stages)
     phase_mesh_entry(dev)
     phase_mesh_rpc()
     launches = read_counts()
@@ -1923,17 +1991,18 @@ def main() -> None:
     clock_of("commit", phase_commit, rng, dev, smi)
     clock_of("logic", phase_logic_full, rng, dev, smi)
     bench_launches = clock_of("bench", phase_bench, smi)
-    chain_launches, chain_sha = clock_of("chain", phase_chain_full, dev, smi)
+    chain_launches, chain_sha, chain_stages = clock_of(
+        "chain", phase_chain_full, dev, smi)
     clock_of("logic", phase_logic_full, rng, dev, smi, "keccak")
-    keccak_launches, _ = clock_of("chain", phase_chain_full, dev, smi,
-                                  "keccak")
+    keccak_launches, _, _ = clock_of("chain", phase_chain_full, dev, smi,
+                                     "keccak")
     block_launches = clock_of("block", phase_block, dev, smi)
     witness_launches = clock_of("witness", phase_witness, smi)
     service_launches = clock_of("service", phase_service, smi)
     clock_of("wrap small", phase_wrap_small, dev)
     wrap_launches = clock_of("wrap", phase_wrap, dev, smi)
     mesh_launches = clock_of("mesh", phase_mesh, rng, dev, smi,
-                             chain_launches, chain_sha)
+                             chain_launches, chain_sha, chain_stages)
     log(clock_of.summary())
     log(f"dense launches: simple-transfer block {block_launches}, chain "
         f"wrap {wrap_launches}, witness chain {witness_launches}, service "

@@ -112,6 +112,7 @@ def test_port_imports_no_jax():
                  "zk_evm_tpu_torch.tables.keccak_sponge",
                  "zk_evm_tpu_torch.parallel",
                  "zk_evm_tpu_torch.parallel.sharded",
+                 "zk_evm_tpu_torch.parallel.blocks",
                  "zk_evm_tpu_torch.entry",
                  "zk_evm_tpu_torch.rpc",
                  "zk_evm_tpu_torch.rpc.provider",

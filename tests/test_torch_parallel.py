@@ -57,6 +57,17 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def whole_coeffs(batch: PolynomialBatch) -> GF:
+    """A batch's (num_polys, n) coefficients, its polys groups joined on
+    the CPU."""
+    return GF(torch.cat([c.v.cpu() for c in batch.coeff_groups]))
+
+
+def whole_lde(batch: PolynomialBatch) -> GF:
+    """A batch's (num_polys, m) LDE, its row blocks joined on the CPU."""
+    return GF(torch.cat([b.v.cpu() for b in batch.lde_blocks], dim=-1))
+
+
 def cpu_mesh(k: int) -> Mesh:
     return make_mesh(k, device_type="cpu")
 
@@ -117,15 +128,17 @@ def test_sharded_cap_uneven_polys(polys):
 @pytest.mark.parametrize("hasher", ["poseidon", "keccak"])
 def test_from_values_mesh_equals_single(hasher):
     """The mesh batch has the single-device batch's values, coeffs, LDE,
-    tree levels, openings and leaves, all on the mesh's first entry."""
+    tree levels, openings and leaves (its coefficients kept in polys
+    groups and its LDE in row blocks, joined here)."""
     values = GF.from_u64(np.random.default_rng(31).integers(
         0, P, size=(13, 32), dtype=np.uint64))
     one = PolynomialBatch.from_values(values, rate_bits=1, cap_height=2,
                                       hasher=hasher)
     many = PolynomialBatch.from_values(values, rate_bits=1, cap_height=2,
                                        hasher=hasher, mesh=cpu_mesh(4))
-    for a, b in [(one.values, many.values), (one.coeffs, many.coeffs),
-                 (one.lde, many.lde)]:
+    for a, b in [(one.values, many.values),
+                 (whole_coeffs(one), whole_coeffs(many)),
+                 (whole_lde(one), whole_lde(many))]:
         assert np.array_equal(a.to_u64(), b.to_u64())
     assert len(one.tree.levels) == len(many.tree.levels)
     for a, b in zip(one.tree.levels, many.tree.levels):

@@ -2,7 +2,8 @@
 of the JAX package's `tests/test_sharded_prove.py` WideStark at 2^12 rows
 over 8 entries, and the memory chain MemBefore -> Memory -> MemAfter at
 Memory 2^10 through `prove_all(parallel_commits=True)` (with and
-without `devices`) and `prove_all(mesh=)`. Every proof's
+without `devices`) and `prove_all(mesh=)` over 2 and 8 entries (CTLs and
+the Z openings at x = 1 over the row blocks). Every proof's
 `proof_to_json` must hash to the single-device proof's sha256. The
 single-device proofs, the port's and the JAX package's (which take
 minutes of XLA compiles), are pinned as sha256 constants that the `slow`
@@ -18,7 +19,8 @@ import torch
 
 from zk_evm_tpu.field import host
 from zk_evm_tpu_torch.challenger import Challenger
-from zk_evm_tpu_torch.parallel import Mesh, make_mesh
+from zk_evm_tpu_torch.parallel import (Mesh, block_runs, make_mesh,
+                                       reset_block_runs)
 from zk_evm_tpu_torch.stark import (FriConfig, Lookup, Stark, StarkConfig,
                                     col, prove_all, prove_stark, verify_all,
                                     verify_stark)
@@ -99,12 +101,17 @@ def sha256(proof) -> str:
 
 
 def test_wide_stark_over_8_entries():
-    """Trace, aux, quotient and FRI trees over an 8-entry mesh: the
-    single-device proof, which the port's verifier accepts."""
+    """Trace, aux, quotient and FRI trees over an 8-entry mesh, and the
+    stages between them over its row blocks: the single-device proof,
+    which the port's verifier accepts."""
     mesh = make_mesh(8, device_type="cpu")
+    reset_block_runs()
     proof = prove_stark(WideStark(), wide_trace(1 << 12), wide_cfg(),
                         Challenger(), mesh=mesh)
     assert sha256(proof) == WIDE_SHA256
+    for stage, entries in (("aux", 1 << 9), ("quotient", 1 << 10),
+                           ("G", 1 << 10)):
+        assert block_runs(stage) == {entries: 8}, stage
     verify_stark(WideStark(), proof, wide_cfg(), Challenger(), device="cpu")
 
 
@@ -128,6 +135,7 @@ CHAIN_PATHS = {
     "parallel_commits_devices": dict(parallel_commits=True,
                                      devices=["cpu"] * 3),
     "mesh": dict(mesh=Mesh(["cpu"] * 2)),
+    "mesh_8": dict(mesh=Mesh(["cpu"] * 8)),
 }
 
 

@@ -9,7 +9,9 @@ segmentation", makes the JAX command line's segment iterator assert; the
 port's command line resolves it to one unsegmented run. And the port
 keeps only the settings a command reads: it has no `prove_config` or
 `proof_dir`, and refuses a flavor other than eth_mainnet, which the JAX
-config accepts and no JAX command proves.
+config accepts and no JAX command proves. The port adds `witness_dir` and
+`output_dir`, which confine a worker's prove_block jobs
+(`tests/test_torch_service.py`).
 """
 
 import dataclasses
@@ -24,13 +26,17 @@ from zk_evm_tpu_torch import runtime_config as rc
 # the JAX settings that no command of either package reads; the port
 # does not carry them
 UNREAD = ("prove_config", "proof_dir")
+# the port's own settings: the directories a worker's jobs may name
+PORT_ONLY = ("witness_dir", "output_dir")
 
 
 def both(**kw):
     """(port, JAX) RuntimeConfig of one load, as dicts; the JAX one
-    without the settings the port does not carry."""
+    without the settings the port does not carry, the port's without
+    its own."""
     want = dataclasses.asdict(jrc.load(**kw))
-    return (dataclasses.asdict(rc.load(**kw)),
+    got = dataclasses.asdict(rc.load(**kw))
+    return ({k: v for k, v in got.items() if k not in PORT_ONLY},
             {k: v for k, v in want.items() if k not in UNREAD})
 
 
@@ -41,6 +47,7 @@ def test_defaults():
     assert (c.flavor, c.max_cpu_len_log, c.batch_size, c.log_level) == \
         ("eth_mainnet", 0, 10, "warning")
     assert not any(hasattr(c, k) for k in UNREAD + ("stark_config",))
+    assert (c.witness_dir, c.output_dir) == (".", ".")
 
 
 def test_file_then_env_then_cli(tmp_path):

@@ -699,8 +699,10 @@ def test_prove_block_handler_plumbing(tmp_path, witness_file, monkeypatch):
     stubbed: each proves the tables of its witness run on the worker's
     device, self-verifies against the frozen kernel, writes the proof
     file and answers {"proof_path", "cycles"}; a job naming no known
-    fixture fails and the worker goes on."""
+    fixture fails and the worker goes on. The worker's runtime config
+    names the witness's and the proofs' directories."""
     from zk_evm_tpu_torch.orchestration import block, persistence
+    from zk_evm_tpu_torch.runtime_config import RuntimeConfig
     from zk_evm_tpu_torch.witness.kernel import combined_kernel
     monkeypatch.delenv("ZK_TABLE_MIN_DEGREES", raising=False)
     calls = []
@@ -725,7 +727,10 @@ def test_prove_block_handler_plumbing(tmp_path, witness_file, monkeypatch):
         ids[name] = q.submit(job)
     bad = q.submit({"kind": "prove_block", "fixture": "no-such-block",
                     "output": str(tmp_path / "x")})
-    assert pqueue.run_worker(q.path, max_jobs=3, device="cpu") == 3
+    config = RuntimeConfig(witness_dir=str(witness_file[0].parent),
+                           output_dir=str(tmp_path))
+    assert pqueue.run_worker(q.path, max_jobs=3, device="cpu",
+                             config=config) == 3
     for k, name in enumerate(JOBS):
         out = str(tmp_path / f"{name}.zkproof")
         assert q.wait(ids[name], timeout=1) == {"proof_path": out,
@@ -736,6 +741,50 @@ def test_prove_block_handler_plumbing(tmp_path, witness_file, monkeypatch):
     assert [c[0] for c in calls] == ["prove", "verify"] * 2
     assert all(c[2] is None and c[3] == "cpu" for c in calls[::2])
     assert all(c[2] is True and c[3] == "cpu" for c in calls[1::2])
+
+
+def test_prove_block_refuses_paths_outside_the_configured_dirs(
+        tmp_path, monkeypatch):
+    """A job whose witness path climbs out of the witness directory
+    (`../`), or whose output is an absolute path outside the output
+    directory, fails before anything is read, proved or written; the
+    directories come from the worker's config, or from ZK_WITNESS_DIR and
+    ZK_OUTPUT_DIR. A job inside them gets as far as its witness file."""
+    from zk_evm_tpu_torch.runtime_config import RuntimeConfig
+    wdir, odir, other = (tmp_path / d for d in ("w", "o", "other"))
+    for d in (wdir, odir, other):
+        d.mkdir()
+    (other / "secret.json").write_text("[]")
+    q = pqueue.FsQueue(str(tmp_path / "q"))
+    climb = q.submit({"kind": "prove_block",
+                      "witness": str(wdir / ".." / "other" / "secret.json"),
+                      "output": str(odir / "a.zkproof")})
+    outside = q.submit({"kind": "prove_block", "fixture": "simple-transfer",
+                        "output": str(other / "b.zkproof")})
+    inside = q.submit({"kind": "prove_block",
+                       "witness": str(wdir / "missing.json"),
+                       "output": str(odir / "c.zkproof")})
+    config = RuntimeConfig(witness_dir=str(wdir), output_dir=str(odir))
+    assert pqueue.run_worker(q.path, max_jobs=3, device="cpu",
+                             config=config) == 3
+    state, error = outcome(q, climb)
+    assert state == "failed" and error.startswith(
+        "ValueError: witness path") and "lies outside" in error
+    state, error = outcome(q, outside)
+    assert state == "failed" and error.startswith(
+        "ValueError: output path") and "lies outside" in error
+    assert outcome(q, inside)[1].startswith("FileNotFoundError")
+    assert sorted(os.listdir(other)) == ["secret.json"]
+    assert os.listdir(odir) == []
+    # the same refusal from the environment, through the handler alone
+    monkeypatch.setenv("ZK_WITNESS_DIR", str(wdir))
+    monkeypatch.setenv("ZK_OUTPUT_DIR", str(odir))
+    monkeypatch.delenv("ZK_CONFIG", raising=False)
+    with pytest.raises(ValueError, match="output path .* lies outside"):
+        pqueue._handle_prove_block({"kind": "prove_block",
+                                    "fixture": "simple-transfer",
+                                    "output": str(other / "d")},
+                                   "cpu")
 
 
 @pytest.mark.slow

@@ -26,14 +26,19 @@ zero/src/bin/):
           kernel
   worker  --queue DIR [--max-jobs N] [--idle-timeout S] [--name W]
           [--affinity light,heavy] [--device cuda|cpu]
+          [--witness-dir D] [--output-dir D]
           claim jobs from a shared queue directory and run them:
           `prove_block` jobs prove a fixture or a decoded witness batch
-          on this process's card (orchestration/queue.py)
+          on this process's card (orchestration/queue.py); a job's
+          witness and proof files must lie in the witness and output
+          directories (ZK_WITNESS_DIR, ZK_OUTPUT_DIR; the working
+          directory by default), or the job fails
   leader  --queue DIR [--host H] [--port P]
           HTTP leader: POST /jobs, GET /jobs/<id>, /metrics, /healthz,
-          dispatching through the queue directory to workers. It trusts
-          its clients: a job names the files a worker reads and writes,
-          so keep it on localhost (the default host)
+          dispatching through the queue directory to workers. A job
+          names the files a worker reads and writes, which the worker
+          confines to its configured directories; the leader has no
+          authentication, so keep it on localhost (the default host)
   bench   the commitment benchmark (zk_evm_tpu_torch.bench), one JSON
           line
   trie-diff A B
@@ -240,7 +245,8 @@ def cmd_worker(args) -> int:
     classes = tuple(args.affinity.split(",")) if args.affinity else None
     n = run_worker(args.queue, max_jobs=args.max_jobs,
                    idle_timeout=args.idle_timeout,
-                   worker_name=args.name, classes=classes, device=device)
+                   worker_name=args.name, classes=classes, device=device,
+                   config=args.runtime)
     print(json.dumps({"jobs_executed": n}))
     return 0
 
@@ -339,6 +345,14 @@ def main(argv=None) -> int:
                         "affinity (leader.rs:28-70)")
     w.add_argument("--device", default="cuda",
                    help="torch device to prove on (default cuda)")
+    w.add_argument("--witness-dir", default=None,
+                   help="directory the jobs' witness files must lie in "
+                        "(or ZK_WITNESS_DIR; default the working "
+                        "directory)")
+    w.add_argument("--output-dir", default=None,
+                   help="directory the jobs' proof files must lie in "
+                        "(or ZK_OUTPUT_DIR; default the working "
+                        "directory)")
     w.set_defaults(fn=cmd_worker)
     td = sub.add_parser("trie-diff",
                         help="diff two trie-shape JSON dumps")
@@ -350,8 +364,7 @@ def main(argv=None) -> int:
     ld.add_argument("--queue", required=True)
     ld.add_argument("--host", default="127.0.0.1",
                     help="address to bind (default 127.0.0.1); the leader "
-                         "trusts its clients, whose jobs name the files "
-                         "a worker reads and writes, so keep it on "
+                         "has no authentication, so keep it on "
                          "localhost")
     ld.add_argument("--port", type=int, default=8080)
     ld.set_defaults(fn=cmd_leader)
@@ -362,8 +375,11 @@ def main(argv=None) -> int:
             "log_level": args.log_level,
             "batch_size": getattr(args, "batch_size", None),
             "max_cpu_len_log": getattr(args, "max_cpu_len_log", None),
+            "witness_dir": getattr(args, "witness_dir", None),
+            "output_dir": getattr(args, "output_dir", None),
         },
         config_path=args.config)
+    args.runtime = rc
     metrics.setup_logging(rc.log_level)
     # the resolved config fills the per-command flags left unset; a
     # max_cpu_len_log of 0 is the config's "no segmentation"

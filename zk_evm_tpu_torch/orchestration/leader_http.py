@@ -14,9 +14,10 @@ Stdlib http.server only (no third-party deps); one FsQueue directory is
 the whole coordination surface, so leaders and workers scale by just
 sharing it.
 
-The leader trusts its clients: a prove_block job names the witness file
-a worker reads and the proof file it writes, as the user running the
-worker. Keep it bound to localhost (`serve`'s default). It does refuse a
+A prove_block job names the witness file a worker reads and the proof
+file it writes; the worker refuses paths outside the directories its
+runtime config names (`queue.confined`). The leader has no
+authentication: keep it bound to localhost (`serve`'s default). It refuses a
 job id that `FsQueue.submit` cannot have made (16 hex digits), so that a
 status query never names a file outside the queue directory."""
 

@@ -20,6 +20,7 @@ can share one queue directory.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import socket
@@ -151,12 +152,33 @@ class FsQueue:
 
 # -- proving handlers ----------------------------------------------------
 
-def _handle_prove_block(job: dict, device) -> dict:
+def confined(path: str, root: str, what: str) -> str:
+    """`path` resolved (relative to the worker's working directory, with
+    `..` and symlinks followed), which must lie inside the directory
+    `root`; a path outside it raises ValueError."""
+    real = os.path.realpath(path)
+    base = os.path.realpath(root)
+    if os.path.commonpath([real, base]) != base:
+        raise ValueError(f"{what} path {path!r} lies outside the "
+                         f"configured {what} directory {root!r} "
+                         f"(ZK_{what.upper()}_DIR)")
+    return real
+
+
+def _handle_prove_block(job: dict, device, config=None) -> dict:
     """Prove one block batch: the worker-side body of BlockProverInput::
     prove (zero/src/prover.rs:49-134) — witness generation through the
     kernel, 9-table proof on the worker's device, self-verify, persist.
     The job references a shared-path witness artifact (or a built-in
-    fixture) and the output proof path."""
+    fixture) and the output proof path. A client names those files, so
+    both must lie inside the runtime config's `witness_dir` and
+    `output_dir` (`config`, or `runtime_config.load()` when not given):
+    a job naming another path fails before anything is read or proved."""
+    from ..runtime_config import load
+    config = config or load()
+    output = confined(job["output"], config.output_dir, "output")
+    witness = None if "fixture" in job else confined(
+        job["witness"], config.witness_dir, "witness")
     from ..witness.kernel import combined_kernel
     from ..witness.interpreter import run_generation
     from ..witness.traces import generate_all_tables
@@ -168,7 +190,7 @@ def _handle_prove_block(job: dict, device) -> dict:
         inputs = FIXTURES[job["fixture"]]()
     else:
         from ..decoder import parse_block_prover_input, entrypoint
-        with open(job["witness"]) as f:
+        with open(witness) as f:
             obj = json.load(f)
         bpi = parse_block_prover_input(
             obj[job.get("index", 0)] if isinstance(obj, list) else obj)
@@ -179,7 +201,7 @@ def _handle_prove_block(job: dict, device) -> dict:
     gt = generate_all_tables(interp)
     proof = prove_block(gt, device=device)
     verify_block(proof, kernel, device=device)
-    write_proof(job["output"], proof)
+    write_proof(output, proof)
     return {"proof_path": job["output"], "cycles": len(interp.trace)}
 
 
@@ -199,7 +221,7 @@ def run_worker(queue_dir: str, handlers: dict | None = None,
                worker_name: str | None = None,
                idle_timeout: float | None = None,
                classes: tuple[str, ...] | None = None,
-               device=None) -> int:
+               device=None, config=None) -> int:
     """Worker main loop (bin/worker.rs twin): claim -> execute -> ack.
     Returns the number of jobs executed. `max_jobs`/`idle_timeout` bound
     the loop for tests and drain-and-exit deployments. `classes` is the
@@ -207,12 +229,17 @@ def run_worker(queue_dir: str, handlers: dict | None = None,
     light-proof/heavy-proof worker split of leader.rs:28-70). Every
     handler runs on this thread with the worker's `device` (CUDA when
     not given); a handler that raises fails its job, which is written
-    as the job's error file, and the worker goes on."""
+    as the job's error file, and the worker goes on. `config` (a
+    `RuntimeConfig`, resolved by `runtime_config.load()` when not given)
+    names the directories that prove_block jobs may read and write."""
     from .. import metrics
+    from ..runtime_config import load
     from ..stark.prover import resolve_device
     device = resolve_device(device)
     q = FsQueue(queue_dir)
-    handlers = handlers if handlers is not None else WORKER_HANDLERS
+    if handlers is None:
+        handlers = dict(WORKER_HANDLERS, prove_block=functools.partial(
+            _handle_prove_block, config=config or load()))
     name = worker_name or f"{socket.gethostname()}.{os.getpid()}"
     done = 0
     idle_since = time.time()

@@ -12,6 +12,10 @@ Env vars (all optional):
     ZK_MAX_CPU_LEN_LOG  segment size 2^N    (zk-continuations)
     ZK_BATCH_SIZE    txns per batch (decoder)
     ZK_LOG           error|warn|info|debug  (metrics.setup_logging)
+    ZK_WITNESS_DIR   the directory a worker's prove_block jobs may read
+                     witness files from (default: its working directory)
+    ZK_OUTPUT_DIR    the directory they may write proof files to
+                     (default: its working directory)
 
 The JAX package's config also resolves `prove_config` (ZK_PROVE_CONFIG)
 and `proof_dir` (ZK_PROOF_DIR), which none of its commands reads, and
@@ -19,6 +23,9 @@ accepts the cdk_erigon and polygon_pos flavors, which its command line
 does not prove. The port has neither setting, so a config file that names
 them is refused as having unknown keys, and it refuses any flavor but
 eth_mainnet rather than prove an eth_mainnet block in its place.
+`witness_dir` and `output_dir` are the port's own: a worker refuses a job
+that names a file outside them (`orchestration/queue.py`), which the JAX
+package's worker does not.
 """
 
 from __future__ import annotations
@@ -35,12 +42,16 @@ class RuntimeConfig:
     max_cpu_len_log: int = 0            # 0 = no segmentation
     batch_size: int = 10
     log_level: str = "warning"
+    witness_dir: str = "."
+    output_dir: str = "."
 
     _ENV: ClassVar[dict] = {
         "flavor": "ZK_FLAVOR",
         "max_cpu_len_log": "ZK_MAX_CPU_LEN_LOG",
         "batch_size": "ZK_BATCH_SIZE",
         "log_level": "ZK_LOG",
+        "witness_dir": "ZK_WITNESS_DIR",
+        "output_dir": "ZK_OUTPUT_DIR",
     }
 
     def validate(self) -> "RuntimeConfig":

@@ -4,11 +4,12 @@ Protocol shape follows plonky2's FRI as driven by starky: rate 2x, fold
 arity 2^4 down to a 2^5-coefficient final polynomial, 84 queries, 16-bit
 grinding at the standard config.
 
-Device work (on the oracles' device): the combined low-degree witness
-G(X) over the whole LDE, every fold step, the commit-phase Merkle trees,
-and the proof-of-work search (one batched Poseidon permutation over 2^18
-candidate witnesses, the permute kernel on CUDA). Host work: transcript
-sequencing and per-query decommitment extraction.
+Device work (on the oracles' device, or G and the folds over a mesh's
+row blocks): the combined low-degree witness G(X) over the whole LDE,
+every fold step, the commit-phase Merkle trees, and the proof-of-work
+search (one batched Poseidon permutation over 2^18 candidate witnesses,
+the permute kernel on CUDA). Host work: transcript sequencing and
+per-query decommitment extraction.
 """
 
 from __future__ import annotations
@@ -19,10 +20,13 @@ import copy
 import operator
 
 import numpy as np
+import torch
 
 from ..field import GF, GFE, host, np_field
 from ..hash import poseidon
-from ..merkle import MerkleTree, build_commitment_tree, paths_verifier
+from ..merkle import (MerkleTree, build_commitment_tree,
+                      build_tree_from_blocks, paths_verifier)
+from ..parallel.blocks import run_blocks
 from ..challenger import Challenger
 from .config import FriConfig
 from ..ntt.ntt import bit_reverse_indices, ifft
@@ -159,6 +163,76 @@ def _ifft_ext(values: GFE) -> GFE:
     return GFE(ifft(values.a), ifft(values.b))
 
 
+def _g_terms(batches: list[FriOpeningBatch], alpha):
+    """Per opening batch, what G's sum takes from the host: the selected
+    rows grouped by oracle in entry order [(oracle, [poly])], the powers
+    alpha^t of its entries as two lists of limbs (t runs on across
+    batches), y = sum_t alpha^t y_t and the point z."""
+    terms = []
+    t = 0  # global alpha power index
+    for batch in batches:
+        aps = []
+        y = (0, 0)
+        ap = host.eexp(alpha, t)
+        for yv in batch.values:
+            aps.append(ap)
+            y = host.eadd(y, host.emul(ap, yv))
+            ap = host.emul(ap, alpha)
+            t += 1
+        sels = []
+        for oi, pi in batch.entries:
+            if sels and sels[-1][0] == oi:
+                sels[-1][1].append(pi)
+            else:
+                sels.append((oi, [pi]))
+        terms.append((sels, [a for a, _ in aps], [b for _, b in aps], y,
+                      batch.point))
+    return terms
+
+
+def _g_values(terms, ldes: list[GF], xs: GF) -> GFE:
+    """G = sum over batches of (sum_t alpha^t P_t(x) - y) / (x - z) at
+    the points `xs`, from the oracles' LDE rows `ldes[oracle]` at those
+    points (a whole LDE, or one row block of each), on xs' device."""
+    dev = xs.device
+    g = GFE.zeros((xs.shape[-1],), dev)
+    for sels, a_pows, b_pows, y, z in terms:
+        g = _g_accumulate(
+            g, [(ldes[oi], idxs) for oi, idxs in sels],
+            GF.from_u64(np.array(a_pows, dtype=np.uint64), dev),
+            GF.from_u64(np.array(b_pows, dtype=np.uint64), dev),
+            GFE.const(y[0], y[1], device=dev),
+            GFE.const(z[0], z[1], device=dev), xs)
+    return g
+
+
+def _fold_blocks(blocks: list[GFE], beta, x_inv: np.ndarray) -> list[GFE]:
+    """One arity-2 fold of each row block on its device (through
+    `run_blocks` when there are several): a fold pairs adjacent
+    entries, so block s of the result is the fold of block s, with its
+    slice of the pairs' inverse points `x_inv`."""
+    half = x_inv.shape[0] // len(blocks)
+
+    def fold(s: int) -> GFE:
+        d = blocks[s].device
+        return _fold_once(blocks[s], GFE.const(beta[0], beta[1], device=d),
+                          GF.from_u64(x_inv[s * half:(s + 1) * half], d))
+
+    if len(blocks) == 1:
+        return [fold(0)]
+    return run_blocks("fold", [b.device for b in blocks], fold,
+                      blocks[0].shape[-1])
+
+
+def _gather_ext(blocks: list[GFE], dev) -> GFE:
+    """Row blocks joined along the last axis on `dev` (one block on
+    `dev` as it is)."""
+    if len(blocks) == 1:
+        return GFE(GF(blocks[0].a.v.to(dev)), GF(blocks[0].b.v.to(dev)))
+    return GFE(GF(torch.cat([b.a.v.to(dev) for b in blocks], dim=-1)),
+               GF(torch.cat([b.b.v.to(dev) for b in blocks], dim=-1)))
+
+
 # ---------------------------------------------------------------------------
 # Prover
 # ---------------------------------------------------------------------------
@@ -175,59 +249,52 @@ def prove_fri(oracles: list[PolynomialBatch],
 
     Callers must have observed all opening values and drawn `alpha` from the
     challenger already (transcript step 6 in DESIGN.md). With a `mesh`
-    (`parallel.Mesh`) each commit-phase tree hashes its row blocks over
-    the mesh's devices; the folds and the grind stay on the oracles'
-    device."""
+    (`parallel.Mesh`) of k > 1 entries, G and every fold run on the k row
+    blocks of the coset, block s on entry s (`run_blocks`: a stream a
+    block), and each commit-phase tree hashes those blocks where they
+    are; the blocks are gathered onto the oracles' first device once a
+    block holds fewer entries than the next arity, and the final
+    polynomial and the grind run there. Without a mesh, or over one
+    entry, everything runs on the oracles' device."""
     log_m = degree_bits + config.rate_bits
     m = 1 << log_m
     shift = host.MULT_GENERATOR
-    dev = oracles[0].lde.device
+    dev = oracles[0].device
+    split = mesh is not None and len(mesh) > 1
+    devices = list(mesh)[:min(len(mesh), m)] if split else [dev]
 
-    # ---- combined witness G on the LDE domain --------------------------
-    xs = GF.from_u64(coset_points_bitrev(log_m, shift), dev)
-    g_vals = GFE.zeros((m,), dev)
-    t = 0  # global alpha power index
-    for batch in batches:
-        z = batch.point
-        # alpha powers for this batch (host-exact), and y = sum a^t y_t
-        aps = []
-        y = (0, 0)
-        ap = host.eexp(alpha, t)
-        for yv in batch.values:
-            aps.append(ap)
-            y = host.eadd(y, host.emul(ap, yv))
-            ap = host.emul(ap, alpha)
-            t += 1
-        # gather the selected LDE rows, grouped by oracle (order-preserving)
-        sels = []
-        i = 0
-        while i < len(batch.entries):
-            oi = batch.entries[i][0]
-            j = i
-            idxs = []
-            while j < len(batch.entries) and batch.entries[j][0] == oi:
-                idxs.append(batch.entries[j][1])
-                j += 1
-            sels.append((oracles[oi].lde, idxs))
-            i = j
-        awa = GF.from_u64(np.array([a for a, _ in aps], dtype=np.uint64), dev)
-        awb = GF.from_u64(np.array([b for _, b in aps], dtype=np.uint64), dev)
-        g_vals = _g_accumulate(
-            g_vals, sels, awa, awb, GFE.const(y[0], y[1], device=dev),
-            GFE.const(z[0], z[1], device=dev), xs)
+    # ---- combined witness G on the LDE domain, in row blocks ------------
+    terms = _g_terms(batches, alpha)
+    xs = coset_points_bitrev(log_m, shift)
+    if split:
+        per_oracle = [o.row_blocks(devices) for o in oracles]
+        step = m // len(devices)
+        blocks = run_blocks(
+            "G", devices, lambda s: _g_values(
+                terms, [b[s] for b in per_oracle],
+                GF.from_u64(xs[s * step:(s + 1) * step], devices[s])),
+            step)
+    else:
+        blocks = [_g_values(terms, [o.lde for o in oracles],
+                            GF.from_u64(xs, dev))]
 
     # ---- commit phase ---------------------------------------------------
     arities = config.reduction_arity_bits(degree_bits)
     commit_trees: list[MerkleTree] = []
     commit_caps: list[list[list[int]]] = []
-    cur = g_vals
     cur_log_m = log_m
     cur_shift = shift
     for ab in arities:
         arity = 1 << ab
-        leaves = _ext_leaves(cur, arity)
+        if len(blocks) > 1 and (1 << cur_log_m) // len(blocks) < arity:
+            blocks = [_gather_ext(blocks, dev)]
         cap_h = min(config.cap_height, cur_log_m - ab)
-        tree = build_commitment_tree(leaves, cap_h, hasher, mesh=mesh)
+        if split:
+            tree = build_tree_from_blocks(
+                [_ext_leaves(b, arity) for b in blocks], dev, cap_h, hasher)
+        else:
+            tree = build_commitment_tree(_ext_leaves(blocks[0], arity),
+                                         cap_h, hasher, mesh=mesh)
         cap_ints = [[int(x) for x in row] for row in tree.cap_u64()]
         commit_trees.append(tree)
         commit_caps.append(cap_ints)
@@ -236,11 +303,12 @@ def prove_fri(oracles: list[PolynomialBatch],
         beta = challenger.get_extension_challenge()
         bk = beta
         for _ in range(ab):
-            x_inv = GF.from_u64(_pair_x_inv_bitrev(cur_log_m, cur_shift), dev)
-            cur = _fold_once(cur, GFE.const(bk[0], bk[1], device=dev), x_inv)
+            blocks = _fold_blocks(blocks, bk, _pair_x_inv_bitrev(
+                cur_log_m, cur_shift))
             bk = host.emul(bk, bk)
             cur_shift = host.fmul(cur_shift, cur_shift)
             cur_log_m -= 1
+    cur = _gather_ext(blocks, dev)
 
     # ---- final polynomial ----------------------------------------------
     final_vals_nat = GFE(

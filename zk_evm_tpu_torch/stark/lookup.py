@@ -32,6 +32,7 @@ import torch
 
 from ..field import GF, host, np_field
 from ..field import goldilocks as gl
+from ..parallel.blocks import run_blocks
 
 
 # ---------------------------------------------------------------------------
@@ -400,10 +401,12 @@ def _make_aux_fn(lookups, groups):
 
 
 def generate_aux_trace(trace_gf: GF, lookups: list[Lookup],
-                       groups, challenges: ChallengeSet) -> GF | None:
+                       groups, challenges: ChallengeSet,
+                       mesh=None) -> GF | None:
     """Build all aux columns for one table, on trace_gf's device.
     trace_gf: (cols, n); `groups` from ctl_groups_for_table. Returns
-    (num_aux, n) GF or None."""
+    (num_aux, n) GF or None. Over a mesh of k > 1 entries the rows split
+    into k contiguous blocks (`_aux_blocks`)."""
     has_items = bool(lookups) or any(views for _c, _s, views in groups)
     if not has_items:
         return None
@@ -413,10 +416,71 @@ def generate_aux_trace(trace_gf: GF, lookups: list[Lookup],
         + [lk.table_column]) or any(
         _coerce_expr(c).uses_next()
         for _ci, _s, views in groups for v in views for c in v.columns)
-    nxt_gf = trace_gf.roll(-1, axis=-1) if uses_next else trace_gf
     fn = _make_aux_fn(lookups, groups)
+    if mesh is not None and len(mesh) > 1:
+        return _aux_blocks(trace_gf, fn, uses_next,
+                           aux_z_indices(lookups, groups, challenges),
+                           challenges, mesh)
+    nxt_gf = trace_gf.roll(-1, axis=-1) if uses_next else trace_gf
     return GF.concatenate([fn(trace_gf, nxt_gf, beta, gamma)
                            for beta, gamma in challenges.pairs], axis=0)
+
+
+def _aux_blocks(trace_gf: GF, fn, uses_next: bool, z_rows: list[int],
+                challenges: ChallengeSet, mesh) -> GF:
+    """`generate_aux_trace` with the rows in k contiguous blocks of n/k,
+    block s on mesh entry s (`run_blocks`: a stream a block). A
+    block's next rows are its own shifted by one and one halo row, the
+    first row of the block after it (of block 0 for the last). Each
+    block's Fermat inverses are its own; its running sums Z are suffix
+    sums within the block, and the field sum of the totals of the blocks
+    after it is added once the blocks are gathered onto trace_gf's
+    device. Field sums are exact, so the columns are the one-device
+    ones, bit for bit."""
+    n = trace_gf.shape[-1]
+    devices = list(mesh)[:min(len(mesh), n)]
+    k = len(devices)
+    step = n // k
+
+    def block(s: int) -> GF:
+        dev = devices[s]
+        cur = GF(trace_gf.v[:, s * step:(s + 1) * step].to(dev))
+        nxt = cur
+        if uses_next:
+            halo = (s + 1) % k * step
+            nxt = GF(torch.cat([cur.v[:, 1:], trace_gf.v[
+                :, halo:halo + 1].to(dev)], dim=-1))
+        return GF.concatenate([fn(cur, nxt, beta, gamma)
+                               for beta, gamma in challenges.pairs], axis=0)
+
+    parts = run_blocks("aux", devices, block, step)
+    aux = GF(torch.cat([p.v.to(trace_gf.device) for p in parts], dim=-1))
+    if z_rows:
+        zi = torch.as_tensor(z_rows, device=aux.device)
+        z = aux.v[zi].reshape(len(z_rows), k, step)
+        # carry[:, s] = sum of the totals (first rows) of blocks s+1..k-1
+        totals = _gf_suffix_sum(GF(z[:, :, 0]))
+        carry = torch.cat([totals.v[:, 1:],
+                           torch.zeros_like(totals.v[:, :1])], dim=1)
+        z = GF(z) + GF(carry[:, :, None].expand(-1, -1, step))
+        aux.v[zi] = z.v.reshape(len(z_rows), n)
+    return aux
+
+
+def aux_z_indices(lookups: list[Lookup], groups,
+                  challenges: ChallengeSet) -> list[int]:
+    """Aux-column indices of every running sum Z, lookups' and CTLs', in
+    `generate_aux_trace`'s layout (each lookup or CTL group's helper
+    columns, then its Z, challenge after challenge)."""
+    per = [lk.num_helpers() for lk in lookups]
+    per += [(len(views) + 1) // 2 for _ci, _side, views in groups]
+    out, k = [], 0
+    for _ in challenges.pairs:
+        for helpers in per:
+            k += helpers
+            out.append(k)
+            k += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,6 @@ tables.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -22,6 +21,7 @@ import torch
 
 from ..field import GF, host
 from ..challenger import Challenger
+from ..parallel.blocks import indexed, side_stream
 from ..timing import record, timed
 from .config import StarkConfig
 from .poly_batch import PolynomialBatch
@@ -74,10 +74,11 @@ def prove_all(starks: list[Stark], traces: list[np.ndarray | None],
     when `devices` is given, and table i is then proved on the device
     that committed it). The table proofs then run in turn under the one
     transcript, as before.
-    `mesh` (`parallel.Mesh`): every table's `prove_stark` runs over it,
-    and so, without `parallel_commits`, does its trace commitment; the
-    tables are proved on `mesh[0]`. The proof is the same on any of
-    these paths."""
+    `mesh` (`parallel.Mesh`): every table's `prove_stark` runs over it
+    (with k > 1 entries its aux columns, quotient, openings, G and folds
+    over the mesh's row blocks), and so, without `parallel_commits`,
+    does its trace commitment; each table's transcript runs on
+    `mesh[0]`. The proof is the same on any of these paths."""
     if mesh is not None:
         if device is not None and not same_device(device, mesh[0]):
             raise ValueError(f"device {device} is not the mesh's first "
@@ -139,36 +140,15 @@ def table_devices(n: int, dev, devices) -> list[torch.device]:
     devices[i % len(devices)], or `dev` for all. A `cuda` device with no
     index is the caller's current card; it is indexed here, because a
     pool thread's current card is card 0."""
-    out = []
-    for i in range(n):
-        d = torch.device(devices[i % len(devices)] if devices else dev)
-        if d.type == "cuda" and d.index is None:
-            d = torch.device("cuda", torch.cuda.current_device())
-        out.append(d)
-    return out
-
-
-@contextlib.contextmanager
-def _side_stream(d: torch.device, prover_stream):
-    """Run the body with `d`'s card current, on a new stream that first
-    waits for `prover_stream`, and synchronise that stream at the end;
-    on a CPU device, run it as it is."""
-    if d.type != "cuda":
-        yield
-        return
-    with torch.cuda.device(d):
-        side = torch.cuda.Stream(device=d)
-        side.wait_stream(prover_stream)
-        with torch.cuda.stream(side):
-            yield
-        side.synchronize()
+    return [indexed(devices[i % len(devices)] if devices else dev)
+            for i in range(n)]
 
 
 def _commit_in_parallel(starks, traces, config: StarkConfig, dev,
                         devices) -> list[PolynomialBatch | None]:
-    """Every trace commitment at once, one thread and one CUDA stream a
-    table, each thread on its table's card. A batch allocated on a side
-    stream is read later on the prover's stream (the current stream of
+    """Every trace commitment at once, one thread and one kept CUDA
+    stream a table (`parallel.blocks.side_stream`), each thread on its
+    table's card. A batch allocated on a side stream is read later on the prover's stream (the current stream of
     its device here): each side stream is synchronised before its batch
     is used, and every tensor the batch keeps is recorded on the
     prover's stream, so that the caching allocator does not hand its
@@ -183,7 +163,7 @@ def _commit_in_parallel(starks, traces, config: StarkConfig, dev,
             return None, 0.0
         d = devs[i]
         t0 = time.perf_counter()
-        with _side_stream(d, prover_streams.get(d)):
+        with side_stream(d, prover_streams.get(d), i):
             batch = PolynomialBatch.from_values(
                 GF.from_u64(trace[starks[i].num_preprocessed:], d),
                 rate_bits=config.rate_bits,

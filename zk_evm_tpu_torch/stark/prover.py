@@ -11,6 +11,8 @@ is a constant of the verification key.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -18,6 +20,7 @@ from ..field import GF, host
 from .. import ntt
 from ..challenger import Challenger
 from ..timing import timed
+from ..parallel.blocks import run_blocks
 from .config import StarkConfig
 from .poly_batch import PolynomialBatch
 from .stark import Stark, StarkFrame, StackingConsumer
@@ -61,18 +64,55 @@ def _powers(base: int, count: int, device) -> GF:
     return out[:count]
 
 
-def selector_tables(degree_bits: int, rate_bits: int, device) -> dict:
+@lru_cache(maxsize=32)
+def next_row_blocks(log_m: int, rate_bits: int, k: int):
+    """`domains.next_row_perm_bitrev` over k row blocks of the
+    bit-reversed LDE: (src, local), where every next row of block s lies
+    in the one block src[s], at local[s] (positions within that block,
+    or None where they are the block's own positions in order).
+
+    Block s holds the natural indices j = br_k(s) (mod k), so the next
+    row j + 2^rate_bits lies in block br_k((br_k(s) + 2^rate_bits) mod k):
+    block s itself while k <= 2^rate_bits, one other whole block beyond.
+    The next frame is one whole-block copy and a local gather."""
+    m = 1 << log_m
+    assert k & (k - 1) == 0 and 0 < k <= m, (k, m)
+    step = m // k
+    perm = domains.next_row_perm_bitrev(log_m, rate_bits)
+    brk = ntt.bit_reverse_indices(k.bit_length() - 1)
+    src, local = [], []
+    for s in range(k):
+        s2 = int(brk[(int(brk[s]) + (1 << rate_bits)) % k])
+        pos = perm[s * step:(s + 1) * step].astype(np.int64) - s2 * step
+        assert pos.min() >= 0 and pos.max() < step, "successor not one block"
+        src.append(s2)
+        local.append(None if np.array_equal(pos, np.arange(step)) else pos)
+    return src, local
+
+
+def selector_tables(degree_bits: int, rate_bits: int, device,
+                    block: tuple[int, int] = (0, 1)) -> dict:
     """`domains.selector_tables_bitrev` computed on `device`: the same
     field elements over the LDE coset in bit-reversed order, with the
     coset points built by log-doubling and the two m-point inversions as
-    one batched device inverse instead of host numpy."""
+    one batched device inverse instead of host numpy. `block` = (s, k)
+    gives row block s of k (positions [s m/k, (s+1) m/k)) alone: its
+    natural indices are br_k(s) + k br(t), so its points are
+    7 w^br_k(s) (w^k)^br(t)."""
+    s, k = block
     n = 1 << degree_bits
     log_m = degree_bits + rate_bits
     m = 1 << log_m
+    step = m // k
     g_last = host.fexp(host.primitive_root_of_unity(degree_bits), n - 1)
     w = host.primitive_root_of_unity(log_m)
-    br = ntt.bit_reverse_indices(log_m)
-    xs = _powers(w, m, device).take(br, axis=0) * domains.SHIFT  # bitrev
+    br = ntt.bit_reverse_indices(log_m)[s * step:(s + 1) * step]
+    first = host.fmul(domains.SHIFT,
+                      host.fexp(w, int(ntt.bit_reverse_indices(
+                          k.bit_length() - 1)[s])))
+    xs = _powers(host.fexp(w, k), step, device).take(
+        ntt.bit_reverse_indices(log_m - (k.bit_length() - 1)),
+        axis=0) * first                                    # bitrev
     # x^n = 7^n * (w^n)^i takes 2^rate_bits values, by i mod 2^rate_bits
     shift_n, w_n = host.fexp(domains.SHIFT, n), host.fexp(w, n)
     zh_vals = [host.fsub(host.fmul(shift_n, host.fexp(w_n, j)), 1)
@@ -94,51 +134,106 @@ def selector_tables(degree_bits: int, rate_bits: int, device) -> dict:
     }
 
 
-def _quotient_chunks(stark: Stark, trace_batch: PolynomialBatch,
-                     aux_batch: PolynomialBatch | None,
-                     lookups, groups, challenges,
-                     alphas: list[int], config: StarkConfig,
-                     public_inputs: list[int],
-                     pre_batch: PolynomialBatch | None = None) -> GF:
-    """Evaluate the constraint composition over the LDE coset and return
-    quotient chunk coefficients, shape (num_challenges << rate_bits, n).
-
-    One eager pass with the stacked fold: every constraint's values over
-    the coset (the table's and the lookup/CTL ones) are stacked, folded
-    per challenge in one weighted sum, divided by Z_H and interpolated
-    back to coefficients."""
-    degree_bits = trace_batch.degree.bit_length() - 1
-    rate_bits = config.rate_bits
-    log_m = degree_bits + rate_bits
-    m = 1 << log_m
-    lde = trace_batch.lde                       # (cols, m) bitrev
-    if pre_batch is not None:
-        # preprocessed (program) columns occupy the low indices
-        lde = GF.concatenate([pre_batch.lde, lde], axis=0)
-    dev = lde.device
-    perm = domains.next_row_perm_bitrev(log_m, rate_bits)
-    sel = selector_tables(degree_bits, rate_bits, dev)
-    aux_local, aux_next = [], []
-    if aux_batch is not None:
-        aux_local = aux_batch.lde
-        aux_next = aux_local.take(perm, axis=-1)
+def _quotient_block(stark: Stark, local: GF, next_: GF, aux_local,
+                    aux_next, sel: dict, lookups, groups, challenges,
+                    alphas: list[int], public_inputs: list[int]) -> GF:
+    """The constraint composition over the coset positions of `local`
+    (cols, B), folded per challenge in one weighted sum and divided by
+    Z_H: (num_challenges, B)."""
+    dev = local.device
     frame = StarkFrame(
-        local=lde,
-        next_=lde.take(perm, axis=-1),
+        local=local, next_=next_,
         aux_local=aux_local, aux_next=aux_next,
         public_inputs=list(public_inputs),
         params=tuple(GF.const(p, device=dev) for p in stark.proof_params()))
     cc = StackingConsumer(
-        alphas=alphas, zero=GF.zeros((m,), dev),
+        alphas=alphas, zero=GF.zeros((local.shape[1],), dev),
         z_last=sel["z_last"], lagrange_first=sel["l_first"],
         lagrange_last=sel["l_last"])
     stark.eval(frame, cc)
     if lookups or groups:
         lookup.eval_aux_constraints(lookups, groups, challenges, frame, cc)
     cc.finalize()
-    q_vals = GF.stack([acc * sel["zh_inv"] for acc in cc.accs], axis=0)
+    return GF.stack([acc * sel["zh_inv"] for acc in cc.accs], axis=0)
+
+
+def _quotient_chunks(stark: Stark, trace_batch: PolynomialBatch,
+                     aux_batch: PolynomialBatch | None,
+                     lookups, groups, challenges,
+                     alphas: list[int], config: StarkConfig,
+                     public_inputs: list[int],
+                     pre_batch: PolynomialBatch | None = None,
+                     mesh=None) -> GF:
+    """Evaluate the constraint composition over the LDE coset and return
+    quotient chunk coefficients, shape (num_challenges << rate_bits, n).
+
+    One eager pass with the stacked fold: every constraint's values over
+    the coset (the table's and the lookup/CTL ones) are stacked, folded
+    per challenge in one weighted sum, divided by Z_H and interpolated
+    back to coefficients. Over a mesh of k > 1 entries each entry
+    evaluates its row block of the coset (`_quotient_blocks`)."""
+    degree_bits = trace_batch.degree.bit_length() - 1
+    rate_bits = config.rate_bits
+    log_m = degree_bits + rate_bits
+    args = (lookups, groups, challenges, alphas, public_inputs)
+    if mesh is not None and len(mesh) > 1:
+        q_vals = _quotient_blocks(stark, trace_batch, aux_batch, pre_batch,
+                                  log_m, rate_bits, mesh, args)
+    else:
+        lde = trace_batch.lde                   # (cols, m) bitrev
+        if pre_batch is not None:
+            # preprocessed (program) columns occupy the low indices
+            lde = GF.concatenate([pre_batch.lde, lde], axis=0)
+        perm = domains.next_row_perm_bitrev(log_m, rate_bits)
+        aux_local, aux_next = [], []
+        if aux_batch is not None:
+            aux_local = aux_batch.lde
+            aux_next = aux_local.take(perm, axis=-1)
+        sel = selector_tables(degree_bits, rate_bits, lde.device)
+        q_vals = _quotient_block(stark, lde, lde.take(perm, axis=-1),
+                                 aux_local, aux_next, sel, *args)
     coeffs = ntt.coset_ifft_from_bitrev(q_vals)          # (nc, m)
     return coeffs.reshape(q_vals.shape[0] << rate_bits, 1 << degree_bits)
+
+
+def _quotient_blocks(stark: Stark, trace_batch: PolynomialBatch,
+                     aux_batch: PolynomialBatch | None,
+                     pre_batch: PolynomialBatch | None,
+                     log_m: int, rate_bits: int, mesh, args) -> GF:
+    """The folded quotient values (num_challenges, m) with row block s of
+    the coset evaluated on mesh entry s (`run_blocks`: a stream a block):
+    its frame is the oracles' block s and, for the next row, one whole
+    block copied from the entry that holds it
+    (`next_row_blocks`); its selectors are built on its entry.
+    The blocks are gathered onto `mesh[0]`."""
+    m = 1 << log_m
+    devices = list(mesh)[:min(len(mesh), m)]
+    k = len(devices)
+    src, local = next_row_blocks(log_m, rate_bits, k)
+    main = [b.row_blocks(devices) for b in (pre_batch, trace_batch)
+            if b is not None]
+    aux = [aux_batch.row_blocks(devices)] if aux_batch is not None else []
+
+    def rows(oracles, s: int, dev) -> GF:
+        parts = [GF(blocks[s].v.to(dev)) for blocks in oracles]
+        return parts[0] if len(parts) == 1 else GF.concatenate(parts, 0)
+
+    def with_next(oracles, s: int):
+        dev = devices[s]
+        cur = rows(oracles, s, dev)
+        nxt = cur if src[s] == s else rows(oracles, src[s], dev)
+        return cur, nxt if local[s] is None else nxt.take(local[s], axis=-1)
+
+    def block(s: int) -> GF:
+        cur, nxt = with_next(main, s)
+        aux_local, aux_next = with_next(aux, s) if aux else ([], [])
+        sel = selector_tables(log_m - rate_bits, rate_bits, devices[s],
+                              block=(s, k))
+        return _quotient_block(stark, cur, nxt, aux_local, aux_next, sel,
+                               *args)
+
+    parts = run_blocks("quotient", devices, block, m // k)
+    return GF(torch.cat([q.v.to(devices[0]) for q in parts], dim=-1))
 
 
 def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
@@ -159,11 +254,18 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
     `trace_batch` in; the proof then runs on that batch's device.
 
     `mesh` (`parallel.Mesh`): every commitment the proof makes (trace,
-    aux, quotient chunks, the FRI trees) goes over the mesh's devices;
-    the stages between them run on `mesh[0]`, which `device`, if given,
-    must name. The proof is the same as on one device. (The JAX
-    package's `shard_rows` layout annotation has no counterpart: the
-    mesh takes its place.)"""
+    aux, quotient chunks, the FRI trees) goes over the mesh's devices,
+    and with k > 1 entries so do the stages between them: the aux
+    columns over k contiguous blocks of trace rows, the quotient, FRI's
+    G and its folds over k row blocks of the LDE coset, the openings
+    over the polys groups, each block on its entry and on a stream of
+    its own, all issued from this thread (`parallel.blocks.run_blocks`).
+    `mesh[0]`, which
+    `device`, if given, must name, keeps the transcript, the quotient's
+    interpolation, FRI's last folds and final polynomial and the grind.
+    The proof is the same as on one device. (The JAX package's
+    `shard_rows` layout annotation has no counterpart: the mesh takes
+    its place.)"""
     if mesh is not None:
         if device is not None and not same_device(device, mesh[0]):
             raise ValueError(f"device {device} is not the mesh's first "
@@ -186,12 +288,11 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
                 rate_bits=config.rate_bits,
                 cap_height=config.cap_height, hasher=config.hasher,
                 mesh=mesh)
-    elif device is not None and not same_device(device,
-                                                trace_batch.lde.device):
+    elif device is not None and not same_device(device, trace_batch.device):
         raise ValueError(f"device {device} differs from the trace batch's "
-                         f"{trace_batch.lde.device}")
+                         f"{trace_batch.device}")
     trace_cap = trace_batch.cap_ints()
-    pre_batch = stark.preprocessed_batch(config, trace_batch.lde.device)
+    pre_batch = stark.preprocessed_batch(config, trace_batch.device)
     assert (pre_batch is None) == (npre == 0)
     if pre_batch is not None:
         assert np.array_equal(stark.preprocessed(), trace[:npre]), \
@@ -218,13 +319,13 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
         with timed("generate aux columns"):
             trace_gf = trace_batch.values
             if trace_gf is None:
-                trace_gf = GF.from_u64(trace[npre:], trace_batch.lde.device)
+                trace_gf = GF.from_u64(trace[npre:], trace_batch.device)
             if pre_batch is not None:
                 # the aux columns see the whole trace, program included
                 trace_gf = GF.concatenate([pre_batch.values, trace_gf],
                                           axis=0)
             aux_gf = lookup.generate_aux_trace(trace_gf, lookups, groups,
-                                               challenges)
+                                               challenges, mesh=mesh)
         with timed("commit aux"):
             aux_batch = PolynomialBatch.from_values(
                 aux_gf, rate_bits=config.rate_bits,
@@ -238,7 +339,8 @@ def prove_stark(stark: Stark, trace: np.ndarray, config: StarkConfig,
     with timed("evaluate quotient"):
         chunks = _quotient_chunks(stark, trace_batch, aux_batch, lookups,
                                   groups, challenges, alphas, config,
-                                  public_inputs, pre_batch=pre_batch)
+                                  public_inputs, pre_batch=pre_batch,
+                                  mesh=mesh)
     with timed("commit quotient"):
         quotient_batch = PolynomialBatch.from_coeffs(
             chunks, rate_bits=config.rate_bits,
