@@ -70,23 +70,20 @@ counts set to 0 just before and read just after:
    mainnet block 1033, batch 0 (two segments, `b1033_batch0.zkproof.gz`)
    is accepted.
 8. The leader/worker service: `python3 -m zk_evm_tpu_torch leader` runs
-   in a process of its own; five requests are POSTed to it: a
-   prove_block job of the simple-transfer fixture, a prove_block job of
-   batch 0 of add11's block from the witness file of path 7, an echo, a
-   job of an unknown kind, and a malformed body (refused with 400). The
-   worker, `main(["worker", ...])` in this process, claims the four jobs
-   from the queue directory and proves the two blocks on the card
-   (witness run, nine tables at the standard config, the host verifier's
-   self-check, the proof file). A client thread polls `GET /jobs/<id>`:
-   both proofs are done, the echo echoes, the unknown kind fails, an
-   unknown id gets 404 and the leader's /metrics counts four jobs; each
-   proof is verified by `verify` in a process of its own, the two at
-   once after the worker has exited and the checks have passed, and
-   waited for before path 9 begins, so that no timed work overlaps
-   them. The simple-transfer proof file's sha256 must
-   equal the JAX package's worker's, and the add11 batch's trie roots
-   after must equal those `decode` prints. The kernels line reports the
-   dense pair's launches on this path, the permute's and the sponge's.
+   in a process of its own; four requests are POSTed to it: a
+   prove_block job of the simple-transfer fixture, an echo, a job of an
+   unknown kind, and a malformed body (refused with 400). The worker,
+   `main(["worker", ...])` in this process, claims the three jobs from
+   the queue directory and proves the block on the card (witness run,
+   nine tables at the standard config, the host verifier's self-check,
+   the proof file). A client thread polls `GET /jobs/<id>`: the proof is
+   done, the echo echoes, the unknown kind fails, an unknown id gets 404
+   and the leader's /metrics counts three jobs; the proof is verified by
+   `verify` in a process of its own after the worker has exited and the
+   checks have passed, and waited for before path 9 begins, so that no
+   timed work overlaps it. The proof file's sha256 must equal the JAX
+   package's worker's. The kernels line reports the dense pair's
+   launches on this path, the permute's and the sponge's.
 9. Recursion: the verifier VM (Rvm, its RAM table and the Poseidon table
    under one transcript, the Rvm's program in a preprocessed oracle).
    First a 16-row Fibonacci proof is verified in a tape
@@ -103,7 +100,26 @@ counts set to 0 just before and read just after:
    when its Rvm has at most 2^21 rows, else in chunks
    (`prove_chunked`), and verified; a wrap proof with one FRI opening
    changed is rejected, and a child with one public value changed fails
-   while its tape is built.
+   while its tape is built. Then the recursion ladder's top rungs: add11's
+   block (block A of path 7's witness list) is decoded and its two
+   batches proved on the card at the test config in segments of at most
+   2^15 CPU rows (two segments, then one), aggregated on the host and
+   checked as a checkpoint block; the whole block is verified in one
+   NativeTape (`wrap_block`: each batch's segment chain, the batches
+   chained, the block-initial checks and both consolidated hashes in the
+   tape; `bind_block_publics` makes its 39 cells the public inputs),
+   whose Rvm and RAM traces hash to the JAX package's, and proved at the
+   standard config as one proof; `verify_block_wrap_chain` accepts it
+   anchored at add11's checkpoint root, its FinalPublicValues and the
+   other public inputs equal to `aggregate_block`'s statement, and
+   rejects it with one FRI opening changed and against a wrong
+   checkpoint root; a child with block_gas_used + 1 fails while its tape
+   is built. Last, `two_to_one_tape` verifies that block wrap and the
+   chain wrap above, two standard-config proofs, in one tape whose 4
+   public inputs are `hash_no_pad` of both proofs' public inputs; it is
+   proved at the standard config (in chunks past 2^21 ops) and verified,
+   and a changed FRI opening in the outer proof or in one child is
+   rejected.
 10. One proof over several devices (`parallel.Mesh`, an ordered list of
    devices; on a host with one card every entry names cuda:0, so the
    splits, all-to-alls and gathers run, and no copy crosses cards):
@@ -188,9 +204,10 @@ from zk_evm_tpu_torch.merkle import build_commitment_tree, keccak_host
 from zk_evm_tpu_torch.merkle.keccak_tree import (_digest_reduce,
                                                  build_tree_keccak)
 from zk_evm_tpu_torch.orchestration.aggregation import (
-    aggregate_block, check_checkpoint_block, verify_block_chain)
-from zk_evm_tpu_torch.orchestration.block import (prove_block, verify_block,
-                                                  verify_segments)
+    FinalPublicValues, aggregate_block, check_checkpoint_block,
+    consolidate_hashes, prove_block_batches,
+    rewrite_checkpoint_consolidation, verify_block_chain)
+from zk_evm_tpu_torch.orchestration.block import prove_block, verify_block
 from zk_evm_tpu_torch.recursion import aggregate as agg
 from zk_evm_tpu_torch.recursion import vm
 from zk_evm_tpu_torch.recursion.continuation import (prove_chunked,
@@ -199,7 +216,7 @@ from zk_evm_tpu_torch.recursion.system import (RVM, prove_system,
                                                verify_system)
 from zk_evm_tpu_torch.recursion.tape_lib import sponge_hash
 from zk_evm_tpu_torch.recursion.verify_tape import verify_stark_tape
-from zk_evm_tpu_torch.decoder import parse_block_prover_input
+from zk_evm_tpu_torch.decoder import entrypoint, parse_block_prover_input
 from zk_evm_tpu_torch.entry import dryrun_multichip, entry
 from zk_evm_tpu_torch.parallel import (Mesh, block_runs, commit_cap,
                                        make_mesh, reset_block_runs,
@@ -212,8 +229,7 @@ from zk_evm_tpu_torch.stark import (FriConfig, PolynomialBatch, Stark,
                                     verify_all, verify_stark)
 from zk_evm_tpu_torch.stark.public_values import (h256_limbs as pvm_h256,
                                                   public_values_from_dict)
-from zk_evm_tpu_torch.stark.serialization import (all_proof_from_json,
-                                                  block_proof_from_json,
+from zk_evm_tpu_torch.stark.serialization import (block_proof_from_json,
                                                   proof_to_json)
 from zk_evm_tpu_torch.tables import all_stark, cpu_columns as cc, logic, \
     memory
@@ -271,7 +287,7 @@ WITNESS_BATCHES = [2, 2]
 B1033_PROOF = REPO / "b1033_batch0.zkproof.gz"
 # the service phase: a leader in a process of its own, the worker here
 SERVICE_DIR = BLOCK_DIR / "service"
-SERVICE_JOBS = 4                            # (a)-(d); (e) is refused
+SERVICE_JOBS = 3                            # (a), (c), (d); (e) is refused
 SERVICE_IDLE_S = 60                         # the worker's idle timeout
 # sha256 of the proof file the JAX package's worker writes for
 # {"kind": "prove_block", "fixture": "simple-transfer"} (the unsegmented
@@ -298,6 +314,15 @@ FIB_WRAP_SHA256 = (
 # tests/test_torch_recursion.py)
 WRAP_TAPE_SHA256 = (
     "c23d71573100db0690da7aba22924e3ea69562ab9888fa78d2dfe1e0008997d0")
+# add11's block wrap: its batches at the test config in segments of at
+# most 2^15 CPU rows (two segments, then one), wrapped by `wrap_block`
+BLOCK_WRAP_SEGMENT_LOG = 15
+BLOCK_WRAP_SEGMENTS = [2, 1]
+# sha256 over the Rvm trace's then the RAM trace's bytes of add11's
+# block-wrap tape, equal between the packages (the `slow` test of
+# tests/test_torch_block_wrap.py)
+BLOCK_WRAP_TAPE_SHA256 = (
+    "71f0801850c5e8868925151f03c78b6dbc80f0d88a338264c8895bbf3122e860")
 # leaf shapes (n_cols, n_rows) of the main paths: the commit benchmark's
 # 2^16-row LDE, the Logic trace's and the Memory trace's LDEs, and the
 # planes sponge's shape in compare_poseidon_layouts
@@ -1188,11 +1213,10 @@ def phase_witness(smi: str) -> dict:
     block proofs, of their refusals, and of the JAX package's mainnet
     proof of block 1033, batch 0. Returns the dense kernels' launches
     while proving the chain."""
-    wdir = BLOCK_DIR / "witness"
-    wdir.mkdir(parents=True, exist_ok=True)
-    witnesses, roots = build_witness_chain(WITNESS_FIXTURE)
-    path = wdir / f"{WITNESS_FIXTURE}-chain.json"
-    path.write_text(json.dumps(witnesses))
+    path = witness_chain_file()
+    wdir = path.parent
+    witnesses = json.loads(path.read_text())
+    _, roots = build_witness_chain(WITNESS_FIXTURE)
 
     rc, out = run_cli(["decode", str(path)])
     decoded = [json.loads(line) for line in out.strip().splitlines()]
@@ -1359,10 +1383,108 @@ def tampered_child(ap):
                                public_inputs=pv.to_elements())
 
 
-def phase_wrap(dev, smi: str) -> dict:
+def witness_chain_file() -> Path:
+    """The two-block witness list of WITNESS_FIXTURE (add11 and its
+    txn-less child), written once under BLOCK_DIR."""
+    path = BLOCK_DIR / "witness" / f"{WITNESS_FIXTURE}-chain.json"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        witnesses, _ = build_witness_chain(WITNESS_FIXTURE)
+        path.write_text(json.dumps(witnesses))
+    return path
+
+
+def tape_shapes(t) -> tuple:
+    """Finalize a tape: (Rvm shape, RAM shape, Poseidon permutations,
+    sha256 of its Rvm and RAM traces, finalize seconds)."""
+    t0 = time.perf_counter()
+    _, rvm_trace, ram_trace, pose_ops, _ = t.finalize()
+    return (rvm_trace.shape, ram_trace.shape, len(pose_ops),
+            tape_sha256(rvm_trace, ram_trace), time.perf_counter() - t0)
+
+
+def expect_rejection(what: str, fn, match: str | None = None) -> float:
+    """Run `fn`, which must raise AssertionError (whose message holds
+    `match`, when given); returns its seconds."""
+    t0 = time.perf_counter()
+    try:
+        fn()
+    except AssertionError as e:
+        if match is not None and match not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{what} was accepted")
+    return time.perf_counter() - t0
+
+
+def prove_wrap_tape(t, std: StarkConfig, dev, what: str, smi: str) -> tuple:
+    """Prove a tape at `std` on the card: one proof when its Rvm has at
+    most 2^WRAP_ONE_PROOF_LOG rows, else chunks of 2^WRAP_CHUNK_LOG ops.
+    Logs the timing tree, the stages' seconds, the peak and the dense
+    pair's launches, and returns (chunks or None, [(starks, proof)],
+    public inputs, launches)."""
+    chunked = len(t.rows) > 1 << WRAP_ONE_PROOF_LOG
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    tree = TimingTree(f"prove {what}")
+    with tree:
+        if chunked:
+            chunks, proven, pub = prove_chunked(t, std, WRAP_CHUNK_LOG,
+                                                device=dev)
+        else:
+            chunks = None
+            starks, proof, pub = prove_system(t, std, device=dev)
+            proven = [(starks, proof)]
+    launches = read_counts()
+    for name in ("poseidon_permute", "poseidon_sponge"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched proving "
+                                 f"{what}")
+    how = (f"{len(chunks)} chunks of 2^{WRAP_CHUNK_LOG} ops" if chunked
+           else "one proof")
+    log(f"{what} proved at the standard config, {how} [{smi}]:")
+    print_tree(tree)
+    stages = stage_seconds(tree)
+    log(f"  {tree.root.elapsed:9.3f} s  total; stages (all tables) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    if chunks is not None:
+        log("  chunks: " + "; ".join(
+            f"Rvm {c.rvm_trace.shape}, RvmMem {c.ram_trace.shape}, "
+            f"Poseidon {len(c.pose_ops)}" for c in chunks))
+    return chunks, proven, pub, launches
+
+
+def verify_wrap(chunks, proven, std: StarkConfig, want: list, dev) -> tuple:
+    """Verify a proved tape (one proof, or chunks) against the public
+    inputs `want`, then again with one FRI opening changed, which must
+    fail on a Merkle path. Returns both seconds."""
+    t0 = time.perf_counter()
+    if chunks is not None:
+        verify_chunked(chunks, proven, std, expected_public_inputs=want,
+                       device=dev)
+        bad = list(proven)
+        bad[0] = (proven[0][0], tampered_opening(proven[0][1]))
+        reject = lambda: verify_chunked(chunks, bad, std, device=dev)
+    else:
+        ((starks, proof),) = proven
+        verify_system(starks, proof, std, expected_public_inputs=want,
+                      device=dev)
+        reject = lambda: verify_system(starks, tampered_opening(proof), std,
+                                       device=dev)
+    verify_s = time.perf_counter() - t0
+    return verify_s, expect_rejection(
+        "a wrap proof with a changed FRI opening", reject, "Merkle")
+
+
+def phase_wrap(dev, smi: str) -> tuple:
     """simple-transfer's segment chain verified in one tape and the tape
     proved at the standard config; returns the dense kernels' launches
-    while proving the tape."""
+    while proving the tape and the wrap as a (starks, AllProof) pair
+    (None when it was chunked)."""
     kernel = combined_kernel()
     cfg = StarkConfig.test_config()
     proofs = []
@@ -1409,77 +1531,173 @@ def phase_wrap(dev, smi: str) -> dict:
             or value[agg.TRA:agg.TRA + 8] != pvm_h256(
                 stmt.trie_roots_after.state_root)):
         raise AssertionError("wrap cells != aggregate_block's statement")
-    t0 = time.perf_counter()
-    stark, rvm_trace, ram_trace, pose_ops, _ = t.finalize()
-    digest = tape_sha256(rvm_trace, ram_trace)
+    rvm_shape, ram_shape, n_pose, digest, fin_s = tape_shapes(t)
     log(f"wrap tape: {len(t.rows)} ops built in {build_s:.2f} s (host); "
-        f"Rvm {rvm_trace.shape}, RvmMem {ram_trace.shape}, Poseidon "
-        f"{len(pose_ops)} permutations; finalized in "
-        f"{time.perf_counter() - t0:.2f} s; block number "
+        f"Rvm {rvm_shape}, RvmMem {ram_shape}, Poseidon {n_pose} "
+        f"permutations; finalized in {fin_s:.2f} s; block number "
         f"{md.block_number}, chain id {md.block_chain_id} and new state "
         f"root equal aggregate_block's; tape sha256 {digest}")
-    if WRAP_TAPE_SHA256 is not None and digest != WRAP_TAPE_SHA256:
+    if digest != WRAP_TAPE_SHA256:
         raise AssertionError(f"wrap tape sha256 != the JAX package's "
                              f"{WRAP_TAPE_SHA256}")
-    del stark, rvm_trace, ram_trace, pose_ops
 
     std = StarkConfig.standard_fast_config()
-    chunked = len(t.rows) > 1 << WRAP_ONE_PROOF_LOG
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    tree = TimingTree("prove wrap")
-    with tree:
-        if chunked:
-            chunks, proven, pub = prove_chunked(t, std, WRAP_CHUNK_LOG,
-                                                device=dev)
-        else:
-            starks, proof, pub = prove_system(t, std, device=dev)
-    launches = read_counts()
-    for name in ("poseidon_permute", "poseidon_sponge"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} kernel never launched in the wrap")
-    how = (f"{len(chunks)} chunks of 2^{WRAP_CHUNK_LOG} ops" if chunked
-           else "one proof")
-    log(f"wrap proved at the standard config, {how} [{smi}]:")
-    print_tree(tree)
-    log(f"  {tree.root.elapsed:9.3f} s  total; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{launches}")
+    chunks, proven, _, launches = prove_wrap_tape(t, std, dev, "wrap", smi)
+    verify_s, bad_open = verify_wrap(chunks, proven, std, want, dev)
+    bad_child = expect_rejection(
+        "a wrap of a child with a changed public value",
+        lambda: agg.wrap_segment_chain(
+            vm.Tape(npub=4), [tampered_child(proofs[0])] + proofs[1:],
+            kernel, cfg, device=dev))
+    log(f"wrap verified in {verify_s:.2f} s (host); a changed FRI opening "
+        f"rejected in {bad_open:.2f} s; a child with block_gas_used + 1 "
+        f"failed while its tape was built in {bad_child:.2f} s")
+    return launches, None if chunks is not None else proven[0]
+
+
+def phase_block_wrap(dev, smi: str) -> tuple:
+    """add11's block (block A of the witness list) decoded, its batches
+    proved at the test config in segments of at most
+    2^BLOCK_WRAP_SEGMENT_LOG CPU rows, aggregated on the host, then the
+    whole block verified in one tape (`wrap_block`, `bind_block_publics`)
+    proved at the standard config as one proof and checked in constant
+    size by `verify_block_wrap_chain`, anchored at add11's checkpoint;
+    three tampered cases are rejected. Returns the dense kernels'
+    launches while proving the tape and the wrap's (starks, AllProof)."""
+    witness = json.loads(witness_chain_file().read_text())[0]
+    checkpoint = bytes.fromhex(
+        witness["other_data"]["checkpoint_state_trie_root"][2:])
+    kernel = combined_kernel()
+    cfg = StarkConfig.test_config()
     t0 = time.perf_counter()
-    if chunked:
-        verify_chunked(chunks, proven, std, expected_public_inputs=want,
-                       device=dev)
-        bad_all = list(proven)
-        bad_all[0] = (proven[0][0], tampered_opening(proven[0][1]))
-        reject = lambda: verify_chunked(chunks, bad_all, std, device=dev)
-    else:
-        verify_system(starks, proof, std, expected_public_inputs=want,
-                      device=dev)
-        bad = tampered_opening(proof)
-        reject = lambda: verify_system(starks, bad, std, device=dev)
+    gis = entrypoint(parse_block_prover_input(witness))
+    rewrite_checkpoint_consolidation([gis])
     t1 = time.perf_counter()
-    try:
-        reject()
-    except AssertionError as e:
-        if "Merkle" not in str(e):
-            raise
-    else:
-        raise AssertionError("a wrap proof with a changed FRI opening "
-                             "verified")
+    bp = prove_block_batches(kernel, gis, config=cfg,
+                             max_cpu_len_log=BLOCK_WRAP_SEGMENT_LOG,
+                             device=dev)
     t2 = time.perf_counter()
-    try:
-        agg.wrap_segment_chain(vm.Tape(npub=4),
-                               [tampered_child(proofs[0])] + proofs[1:],
-                               kernel, cfg, device=dev)
-    except AssertionError:
-        pass
-    else:
-        raise AssertionError("a child with a changed public value wrapped")
-    log(f"wrap verified in {t1 - t0:.2f} s (host); a changed FRI opening "
-        f"rejected in {t2 - t1:.2f} s; a child with block_gas_used + 1 "
-        f"failed while its tape was built in "
-        f"{time.perf_counter() - t2:.2f} s")
+    segments = [len(chain) for chain in bp.batches]
+    stmt = bp.public_values
+    check_checkpoint_block(stmt)
+    if stmt.extra_block_data.checkpoint_state_trie_root != checkpoint:
+        raise AssertionError("add11's statement names another checkpoint")
+    log(f"block wrap: {WITNESS_FIXTURE} decoded in {t1 - t0:.2f} s into "
+        f"{len(gis)} batches; segments per batch {segments} at the test "
+        f"config (max_cpu_len_log {BLOCK_WRAP_SEGMENT_LOG}) proved on the "
+        f"card and aggregated on the host (aggregate_block, every segment "
+        f"verified) in {t2 - t1:.2f} s [{smi}]; check_checkpoint_block "
+        f"passes")
+    if segments != BLOCK_WRAP_SEGMENTS:
+        raise AssertionError(f"segments per batch {segments} != "
+                             f"{BLOCK_WRAP_SEGMENTS}")
+
+    t = vm.Tape(npub=agg.NPUB_BLOCK)
+    if not isinstance(t, vm.NativeTape):
+        raise AssertionError(f"Tape() gave {type(t).__name__}")
+    t0 = time.perf_counter()
+    agg.bind_block_publics(t, agg.wrap_block(t, bp.batches, kernel, cfg,
+                                             device=dev))
+    build_s = time.perf_counter() - t0
+    rvm_shape, ram_shape, n_pose, digest, fin_s = tape_shapes(t)
+    log(f"block wrap tape: {len(t.rows)} ops built in {build_s:.2f} s "
+        f"(host); Rvm {rvm_shape}, RvmMem {ram_shape}, Poseidon {n_pose} "
+        f"permutations; finalized in {fin_s:.2f} s; tape sha256 {digest}")
+    if digest != BLOCK_WRAP_TAPE_SHA256:
+        raise AssertionError(f"block wrap tape sha256 != the JAX "
+                             f"package's {BLOCK_WRAP_TAPE_SHA256}")
+    if len(t.rows) > 1 << WRAP_ONE_PROOF_LOG:
+        raise AssertionError(f"block wrap tape of {len(t.rows)} ops does "
+                             f"not fit one proof")
+
+    std = StarkConfig.standard_fast_config()
+    _, ((starks, proof),), pub, launches = prove_wrap_tape(
+        t, std, dev, "block wrap", smi)
+    t0 = time.perf_counter()
+    (final,) = agg.verify_block_wrap_chain(
+        [(starks, proof)], std, checkpoint_state_trie_root=checkpoint,
+        device=dev)
+    verify_s = time.perf_counter() - t0
+    md = stmt.block_metadata
+    want_rest = [md.block_number, md.block_timestamp] \
+        + pvm_h256(stmt.trie_roots_before.state_root) \
+        + list(consolidate_hashes(list(stmt.block_hashes.prev_hashes)))
+    if final != FinalPublicValues.from_public_values(stmt).to_elements() \
+            or pub[25:] != want_rest:
+        raise AssertionError(f"block wrap publics {pub} != "
+                             f"aggregate_block's statement")
+    log(f"block wrap: verify_block_wrap_chain accepts it anchored at "
+        f"{WITNESS_FIXTURE}'s checkpoint in {verify_s:.2f} s (host); "
+        f"FinalPublicValues (chain id {md.block_chain_id}, checkpoint "
+        f"root, new state root, both consolidated hashes), block number "
+        f"{md.block_number}, timestamp, pre-state root and the window's "
+        f"consolidated hash == aggregate_block's")
+    bad_open = expect_rejection(
+        "a block wrap with a changed FRI opening",
+        lambda: agg.verify_block_wrap_chain(
+            [(starks, tampered_opening(proof))], std, device=dev),
+        "Merkle")
+    bad_root = expect_rejection(
+        "the block wrap against a wrong checkpoint root",
+        lambda: agg.verify_block_wrap_chain(
+            [(starks, proof)], std,
+            checkpoint_state_trie_root=bytes(32), device=dev),
+        "wrong checkpoint")
+    first = bp.batches[0]
+    bad_child = expect_rejection(
+        "a block wrap of a child with block_gas_used + 1",
+        lambda: agg.wrap_block(
+            vm.Tape(npub=agg.NPUB_BLOCK),
+            [[tampered_child(first[0])] + first[1:]] + bp.batches[1:],
+            kernel, cfg, device=dev))
+    log(f"block wrap: a changed FRI opening rejected in {bad_open:.2f} s, "
+        f"a wrong checkpoint root in {bad_root:.2f} s; a child with "
+        f"block_gas_used + 1 failed while its tape was built in "
+        f"{bad_child:.2f} s")
+    return launches, (starks, proof)
+
+
+def phase_two_to_one(dev, smi: str, left, right) -> dict:
+    """Two standard-config wrap proofs, add11's block wrap (left) and
+    simple-transfer's chain wrap (right), verified in one tape
+    (`two_to_one_tape`) whose 4 public inputs are the digest of both
+    proofs' public inputs; the tape is proved at the standard config
+    (in chunks past 2^WRAP_ONE_PROOF_LOG ops) and verified; a changed
+    FRI opening in the outer proof and in one child are rejected.
+    Returns the dense kernels' launches while proving the tape."""
+    if right is None:
+        raise AssertionError("the chain wrap was chunked: no one proof to "
+                             "aggregate")
+    std = StarkConfig.standard_fast_config()
+    want = host_poseidon.hash_no_pad(
+        [int(v) for v in left[1].public_inputs]
+        + [int(v) for v in right[1].public_inputs])
+    t = vm.Tape(npub=4)
+    t0 = time.perf_counter()
+    for k, c in enumerate(agg.two_to_one_tape(t, left, right, std,
+                                              device=dev)):
+        t.bind_public(c, k)
+    build_s = time.perf_counter() - t0
+    if t.public_inputs != want:
+        raise AssertionError("two-to-one digest != host hash_no_pad of the "
+                             "children's public inputs")
+    log(f"two-to-one tape: {len(t.rows)} ops built in {build_s:.2f} s "
+        f"(host) from two standard-config wraps "
+        f"({len(left[1].public_inputs)} and "
+        f"{len(right[1].public_inputs)} public inputs); digest == host "
+        f"hash_no_pad")
+    chunks, proven, pub, launches = prove_wrap_tape(t, std, dev,
+                                                    "two-to-one", smi)
+    verify_s, bad_open = verify_wrap(chunks, proven, std, want, dev)
+    bad_child = expect_rejection(
+        "a two-to-one tape over a child with a changed FRI opening",
+        lambda: agg.two_to_one_tape(
+            vm.Tape(npub=4), (left[0], tampered_opening(left[1])), right,
+            std, device=dev))
+    log(f"two-to-one verified in {verify_s:.2f} s (host), public inputs == "
+        f"hash_no_pad(left || right); a changed FRI opening rejected in "
+        f"{bad_open:.2f} s; a child with a changed FRI opening failed "
+        f"while its tape was built in {bad_child:.2f} s")
     return launches
 
 
@@ -1577,16 +1795,17 @@ def watch_jobs(base: str, ids: dict, t_submit: float, stop) -> tuple:
     return thread, statuses, seconds
 
 
-def phase_service(smi: str) -> tuple:
+def phase_service(smi: str) -> dict:
     """The leader/worker service: a leader (`python3 -m zk_evm_tpu_torch
-    leader`) in a process of its own accepts five requests over HTTP; the
+    leader`) in a process of its own accepts four requests over HTTP; the
     worker (`main(["worker", ...])`, in this process, so that the kernels'
-    launches can be read) proves the two prove_block jobs on the card,
-    self-verifies and writes their proofs. Checks every job's answer, the
-    proof of simple-transfer against the JAX worker's (sha256) and the
-    witness job's roots against `decode`'s; then `verify` of both proofs
-    runs in processes of their own, and the phase waits for them, so that
-    nothing of it runs on into later timed work.
+    launches can be read) proves the prove_block job on the card,
+    self-verifies and writes its proof. Checks every job's answer and the
+    proof of simple-transfer against the JAX worker's (sha256); then
+    `verify` of the proof runs in a process of its own, and the phase
+    waits for it, so that nothing of it runs on into later timed work.
+    (A prove_block job of a witness batch, whose decoder path the witness
+    phase runs, is the CPU tests' to hold: tests/test_torch_service.py.)
     Returns the dense kernels' launches while the worker ran."""
     if os.environ.get("ZK_TABLE_MIN_DEGREES"):
         raise AssertionError("ZK_TABLE_MIN_DEGREES is set: the worker "
@@ -1595,20 +1814,10 @@ def phase_service(smi: str) -> tuple:
         shutil.rmtree(SERVICE_DIR)
     queue = SERVICE_DIR / "queue"
     queue.mkdir(parents=True)
-    witnesses, _ = build_witness_chain(WITNESS_FIXTURE)
-    wpath = SERVICE_DIR / f"{WITNESS_FIXTURE}-chain.json"
-    wpath.write_text(json.dumps(witnesses))
-    rc, out = run_cli(["decode", str(wpath)])
-    if rc != 0:
-        raise AssertionError(f"decode: exit {rc}")
-    decoded = json.loads(out.strip().splitlines()[0])
-    outputs = {"a": SERVICE_DIR / "simple-transfer.zkproof",
-               "b": SERVICE_DIR / f"{WITNESS_FIXTURE}-batch0.zkproof"}
+    outputs = {"a": SERVICE_DIR / "simple-transfer.zkproof"}
     jobs = {
         "a": {"kind": "prove_block", "fixture": "simple-transfer",
               "output": str(outputs["a"])},
-        "b": {"kind": "prove_block", "witness": str(wpath), "index": 0,
-              "batch": 0, "output": str(outputs["b"])},
         "c": {"kind": "echo", "payload": {"seed": SEED}},
         "d": {"kind": "no-such-kind"},
     }
@@ -1675,8 +1884,8 @@ def phase_service(smi: str) -> tuple:
                 raise AssertionError(f"{name} kernel never launched by the "
                                      f"worker")
         prove_timer = snap["timers"]["job.prove_block"]
-        if prove_timer["count"] != 2 or snap["counters"] != {
-                "worker.jobs_completed": 3.0, "worker.jobs_failed": 1.0}:
+        if prove_timer["count"] != 1 or snap["counters"] != {
+                "worker.jobs_completed": 2.0, "worker.jobs_failed": 1.0}:
             raise AssertionError(f"worker metrics: {snap['counters']} "
                                  f"{prove_timer}")
         log(f"service: {phase_split(snap['timers'], prove_timer)}")
@@ -1688,17 +1897,6 @@ def phase_service(smi: str) -> tuple:
             f"device memory {peak:.2f} GiB; launches {launches}; leader "
             f"counters {leader_metrics['counters']}")
 
-        roots = all_proof_from_json(outputs["b"].read_text()) \
-            .public_values.trie_roots_after
-        got = {"post_state_root": roots.state_root,
-               "transactions_root": roots.transactions_root,
-               "receipts_root": roots.receipts_root}
-        got = {k: "0x" + bytes(v).hex() for k, v in got.items()}
-        want = {k: decoded[k] for k in got}
-        if got != want:
-            raise AssertionError(f"service (b): trie roots after {got} != "
-                                 f"decode's {want}")
-        log(f"service (b): trie roots after == decode's {want}")
         digest = hashlib.sha256(outputs["a"].read_bytes()).hexdigest()
         if digest != PROVE_BLOCK_SIMPLE_TRANSFER_SHA256:
             raise AssertionError(
@@ -2000,13 +2198,19 @@ def main() -> None:
     witness_launches = clock_of("witness", phase_witness, smi)
     service_launches = clock_of("service", phase_service, smi)
     clock_of("wrap small", phase_wrap_small, dev)
-    wrap_launches = clock_of("wrap", phase_wrap, dev, smi)
+    wrap_launches, chain_wrap = clock_of("wrap", phase_wrap, dev, smi)
+    block_wrap_launches, block_wrap = clock_of("block wrap",
+                                               phase_block_wrap, dev, smi)
+    two_to_one_launches = clock_of("two-to-one", phase_two_to_one, dev,
+                                   smi, block_wrap, chain_wrap)
+    del chain_wrap, block_wrap
     mesh_launches = clock_of("mesh", phase_mesh, rng, dev, smi,
                              chain_launches, chain_sha, chain_stages)
     log(clock_of.summary())
     log(f"dense launches: simple-transfer block {block_launches}, chain "
-        f"wrap {wrap_launches}, witness chain {witness_launches}, service "
-        f"{service_launches}")
+        f"wrap {wrap_launches}, block wrap {block_wrap_launches}, "
+        f"two-to-one {two_to_one_launches}, witness chain "
+        f"{witness_launches}, service {service_launches}")
     log(f"keccak launches: memory chain under hasher keccak "
         f"{keccak_launches}")
     log(f"path 10 (one proof over several devices) launches: "

@@ -14,11 +14,22 @@ from zk_evm_tpu_torch import merkle
 from zk_evm_tpu_torch.field import GF
 from zk_evm_tpu_torch.hash import poseidon_dense
 from zk_evm_tpu_torch.parallel import commit_cap
+from test_torch_parallel import ENTRY_CAP_SHA256, caps_sha256
 
 P = host.P
 rng = np.random.default_rng(23)
 ENTRY_VALUES = np.random.default_rng(0).integers(
     0, P, size=(16, 256), dtype=np.uint64)      # entry()'s input
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread runs these small CPU proofs and hashes as fast
+    as many and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("n_cols", [3, 12])
@@ -166,9 +177,19 @@ def test_commit_cap_matches_entry(jax_entry_levels, cap_height):
     got = commit_cap(GF.from_u64(ENTRY_VALUES), cap_height=cap_height)
     assert got.shape == (1 << cap_height, 4)
     assert np.array_equal(got.to_u64(), jax_entry_levels[1 << cap_height])
-    if cap_height == 2:     # entry()'s own call
-        want = jcommit_cap(JGF.from_u64(ENTRY_VALUES), cap_height=2)
-        assert np.array_equal(got.to_u64(), want.to_u64())
+    if cap_height == 2:     # entry()'s own call, the JAX cap pinned
+        assert caps_sha256([got.to_u64()]) == ENTRY_CAP_SHA256
+
+
+@pytest.mark.slow
+def test_commit_cap_entry_equals_jax_commit_cap():
+    """entry()'s cap against the JAX package's fused `commit_cap`, whose
+    compile takes over a minute on the CPU (tier-1 holds the port's cap
+    to its sha256, ENTRY_CAP_SHA256)."""
+    got = commit_cap(GF.from_u64(ENTRY_VALUES), cap_height=2)
+    want = jcommit_cap(JGF.from_u64(ENTRY_VALUES), cap_height=2)
+    assert np.array_equal(got.to_u64(), want.to_u64())
+    assert caps_sha256([want.to_u64()]) == ENTRY_CAP_SHA256
 
 
 @pytest.mark.cuda

@@ -1,7 +1,14 @@
 """The Logic table (523 columns) proved by the PyTorch port against the
 JAX package at 8 rows: `proof_to_json` byte-identical, the JAX verifier
 accepts the port's proof, and the port's verifier rejects a flipped result
-limb (as tests/test_logic_table.py)."""
+limb (as tests/test_logic_table.py).
+
+The JAX package's proof takes about a minute of XLA compiles on the CPU,
+so tier-1 holds the port's proof to its sha256 (JAX_LOGIC_SHA256) and
+the `slow` test (`-m slow`) makes the JAX proof, checks the constant and
+has the port's verifier accept it."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -26,6 +33,16 @@ from zk_evm_tpu_torch.tables import logic
 rng = np.random.default_rng(11)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread runs these small CPU proofs and hashes as fast
+    as many and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rand_u256():
     return int.from_bytes(rng.bytes(32), "little")
 
@@ -36,18 +53,14 @@ CFG_KW = dict(rate_bits=1, cap_height=2, proof_of_work_bits=0,
               num_query_rounds=2, arity_bits=1, final_poly_bits=2)
 CFG = StarkConfig(security_bits=1, fri_config=FriConfig(**CFG_KW))
 JCFG = JStarkConfig(security_bits=1, fri_config=JFriConfig(**CFG_KW))
+# sha256 of the JAX package's proof_to_json(prove_stark(...)) of the trace
+JAX_LOGIC_SHA256 = (
+    "53315934aa9904539ec667c46fba7603b1a19b9634411fb69c84ae637314bd32")
 
 
 @pytest.fixture(scope="module")
 def trace():
     return logic.generate_trace(OPS)                # 8 rows
-
-
-@pytest.fixture(scope="module")
-def jax_proof_json(trace):
-    """The JAX package's proof, built once (about a minute on the CPU)."""
-    return jproof_to_json(jprove_stark(jlogic.LogicStark(), trace, JCFG,
-                                       JChallenger()))
 
 
 @pytest.fixture(scope="module")
@@ -62,8 +75,20 @@ def test_trace_matches_reference(trace):
     assert trace.shape == (logic.NUM_COLUMNS, 8) and logic.NUM_COLUMNS == 523
 
 
-def test_logic_proof_json_identical(port_proof, jax_proof_json):
-    assert proof_to_json(port_proof) == jax_proof_json
+def test_logic_proof_json_identical(port_proof):
+    assert hashlib.sha256(proof_to_json(port_proof).encode()).hexdigest() \
+        == JAX_LOGIC_SHA256
+
+
+@pytest.mark.slow
+def test_jax_logic_proof_constant(trace):
+    """The JAX package's proof (about a minute): its sha256 is
+    JAX_LOGIC_SHA256, and the port's verifier accepts it."""
+    jjson = jproof_to_json(jprove_stark(jlogic.LogicStark(), trace, JCFG,
+                                        JChallenger()))
+    assert hashlib.sha256(jjson.encode()).hexdigest() == JAX_LOGIC_SHA256
+    verify_stark(logic.LogicStark(), convert.proof_from_json(jjson), CFG,
+                 Challenger())
 
 
 def test_jax_verifier_accepts_port_proof(port_proof):
@@ -72,9 +97,12 @@ def test_jax_verifier_accepts_port_proof(port_proof):
                   JChallenger())
 
 
-def test_port_verifier_accepts(port_proof, jax_proof_json):
+def test_port_verifier_accepts(port_proof):
+    """The port's proof, and the same proof read back from its JSON (the
+    JAX proof's text, by test_logic_proof_json_identical)."""
     verify_stark(logic.LogicStark(), port_proof, CFG, Challenger())
-    verify_stark(logic.LogicStark(), convert.proof_from_json(jax_proof_json),
+    verify_stark(logic.LogicStark(),
+                 convert.proof_from_json(proof_to_json(port_proof)),
                  CFG, Challenger())
 
 

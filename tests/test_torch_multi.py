@@ -4,7 +4,15 @@ transcript, with Memory's logUp lookups and the cross-table lookups.
 `proof_to_json(prove_all(...))` is byte-identical for two inputs
 (`__graft_entry__.py`'s 5 words at its config, and 100 random words at
 the test config); each package's `verify_all` accepts the other's proof;
-a proof of a tampered Memory trace is rejected by both."""
+a proof of a tampered Memory trace is rejected by both.
+
+The JAX package's two `prove_all` runs take minutes of XLA compiles on
+the CPU, so tier-1 holds the port's proofs to the sha256 of the JAX
+proofs, pinned in JAX_ALL_PROOF_SHA256, and the `slow` test
+(`-m slow`) makes the JAX proofs, checks the constants and has the
+port's verifier accept them."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -42,26 +50,44 @@ CASES = {
 }
 
 
+# sha256 of the JAX package's proof_to_json(prove_all(...)) of each case
+JAX_ALL_PROOF_SHA256 = {
+    "graft_5_words":
+        "6b4be97ade9f5741540edda5d946cdad5ffbdcd7e82ef6d293a6fd8c18f22087",
+    "words_100":
+        "cdf308dc29fcccebcceb5ca8d997990fc6d081ac0cd0978be18118ed26167582",
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread runs these small CPU proofs and hashes as fast
+    as many and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def optional_of(traces):
     return tuple(i for i, t in enumerate(traces) if t is None)
 
 
 @pytest.fixture(scope="module", params=list(CASES))
 def proofs(request):
-    """(traces, port proof, JAX proof JSON, cfg, jcfg), each proof built
+    """(traces, port proof, case name, cfg, jcfg), each proof built
     once."""
     words, cfg, jcfg = CASES[request.param]
     traces = chain_traces(words)
     proof = prove_all(ast.all_starks(), traces,
                       ast.all_cross_table_lookups(), cfg, device="cpu")
-    jproof = jprove_all(jast.all_starks(), traces,
-                        jast.all_cross_table_lookups(), jcfg)
-    return traces, proof, jproof_to_json(jproof), cfg, jcfg
+    return traces, proof, request.param, cfg, jcfg
 
 
 def test_all_proof_json_identical(proofs):
-    _, proof, jjson, _, _ = proofs
-    assert proof_to_json(proof) == jjson
+    _, proof, case, _, _ = proofs
+    assert hashlib.sha256(proof_to_json(proof).encode()).hexdigest() == \
+        JAX_ALL_PROOF_SHA256[case]
 
 
 def test_jax_verifier_accepts_port_proof(proofs):
@@ -72,10 +98,30 @@ def test_jax_verifier_accepts_port_proof(proofs):
 
 
 def test_port_verifier_accepts_jax_proof(proofs):
-    traces, proof, jjson, cfg, _ = proofs
-    for p in (proof, all_proof_from_json(jjson)):
+    """The port's proof, and the same proof read back from its JSON (the
+    JAX proof's text, by test_all_proof_json_identical; the `slow` test
+    reads the JAX package's own)."""
+    traces, proof, _, cfg, _ = proofs
+    for p in (proof, all_proof_from_json(proof_to_json(proof))):
         verify_all(ast.all_starks(), p, ast.all_cross_table_lookups(), cfg,
                    optional_tables=optional_of(traces))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", list(CASES))
+def test_jax_all_proof_constants(case):
+    """The JAX package's proof of each case (minutes of XLA compiles):
+    its sha256 is JAX_ALL_PROOF_SHA256's, and the port's verifier accepts
+    it."""
+    words, cfg, jcfg = CASES[case]
+    traces = chain_traces(words)
+    jjson = jproof_to_json(jprove_all(jast.all_starks(), traces,
+                                      jast.all_cross_table_lookups(), jcfg))
+    assert hashlib.sha256(jjson.encode()).hexdigest() == \
+        JAX_ALL_PROOF_SHA256[case]
+    verify_all(ast.all_starks(), all_proof_from_json(jjson),
+               ast.all_cross_table_lookups(), cfg,
+               optional_tables=optional_of(traces))
 
 
 def test_all_proof_json_roundtrip(proofs):

@@ -23,6 +23,16 @@ BOUNDARY = np.array([0, 1, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63],
 rng = np.random.default_rng(21)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread runs these small CPU proofs and hashes as fast
+    as many and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rand_states(n):
     s = rng.integers(0, P, size=(n, pp.WIDTH), dtype=np.uint64)
     k = min(n, 8)

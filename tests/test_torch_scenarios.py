@@ -9,8 +9,9 @@ the two options the recursion layer and the sponge scenario set:
 - preprocessed (program) columns: a table whose low columns are fixed by
   a program the verifier holds, committed in an oracle of their own, in
   `prove_stark` and in `prove_all` with a CTL filtered by a program
-  column; the proofs equal the JAX package's, and a proof made under
-  another program is rejected.
+  column; the proofs equal the JAX package's (pinned as sha256 constants
+  that the `slow` tests recompute), and a proof made under another
+  program is rejected.
 
 Tolerance 0."""
 
@@ -51,6 +52,13 @@ CFG_KW = dict(rate_bits=1, cap_height=2, proof_of_work_bits=0,
 # the `slow` test recomputes it
 SPONGE_SCENARIO_SHA256 = (
     "d05197109608b91fb79c77cbecbdf6b976cb1fa9e8c7d7b6e4a81be0f27d0fbb")
+# sha256 of the JAX package's proof_to_json of the program table's proof
+# (prove_stark) and of the program and toy tables' (prove_all) at CFG_KW;
+# the `slow` test recomputes them
+PREPROCESSED_STARK_SHA256 = (
+    "057a11fb34f3dbf913faf87d4e8b45bda8495dba5c356a5dbb155cd84378a1f9")
+PREPROCESSED_ALL_SHA256 = (
+    "d94a6207294669b045489378dd8317c67cac83ce9969900d3d134d0d7ecf702f")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -243,13 +251,15 @@ def _ctls(ctl_cls, view_cls, filter_cls, c):
                                     filter=filter_cls(column=1)))]
 
 
+def _sha256(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
 def test_preprocessed_prove_stark_equals_jax():
     trace = prog_trace()
     proof = prove_stark(ProgStark(), trace, _cfg(), Challenger(), PUBLIC,
                         device="cpu")
-    jproof = jprove_stark(JProgStark(), trace, _jcfg(), JChallenger(),
-                          PUBLIC)
-    assert proof_to_json(proof) == jproof_to_json(jproof)
+    assert _sha256(proof_to_json(proof)) == PREPROCESSED_STARK_SHA256
     verify_stark(ProgStark(), proof, _cfg(), Challenger(), device="cpu")
     # the trace's program columns must be the stark's program
     other = np.array([[0, 1, 1, 0, 0, 1, 0, 0]], dtype=np.uint64)
@@ -270,11 +280,7 @@ def test_preprocessed_prove_all_equals_jax():
     proof = prove_all([ProgStark(), ToyStark()], traces, ctls, _cfg(),
                       public_inputs=PUBLIC, table_public_inputs={0: PUBLIC},
                       device="cpu")
-    jproof = jprove_all([JProgStark(), JToyStark()], traces,
-                        _ctls(JCtl, JView, JFilter, jcol), _jcfg(),
-                        public_inputs=PUBLIC,
-                        table_public_inputs={0: PUBLIC})
-    assert proof_to_json(proof) == jproof_to_json(jproof)
+    assert _sha256(proof_to_json(proof)) == PREPROCESSED_ALL_SHA256
     verify_all([ProgStark(), ToyStark()], proof, ctls, _cfg(),
                device="cpu")
     jverify_all([JProgStark(), JToyStark()],
@@ -295,6 +301,21 @@ def test_preprocessed_verify_needs_a_device_without_cuda():
                         PUBLIC, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         verify_stark(ProgStark(), proof, _cfg(), Challenger())
+
+
+@pytest.mark.slow
+def test_preprocessed_constants_are_jax():
+    """Recompute PREPROCESSED_STARK_SHA256 and PREPROCESSED_ALL_SHA256
+    with the JAX package (XLA compiles of tens of seconds each)."""
+    jproof = jprove_stark(JProgStark(), prog_trace(), _jcfg(), JChallenger(),
+                          PUBLIC)
+    assert _sha256(jproof_to_json(jproof)) == PREPROCESSED_STARK_SHA256
+    jproof = jprove_all([JProgStark(), JToyStark()],
+                        [prog_trace(), toy_trace()],
+                        _ctls(JCtl, JView, JFilter, jcol), _jcfg(),
+                        public_inputs=PUBLIC,
+                        table_public_inputs={0: PUBLIC})
+    assert _sha256(jproof_to_json(jproof)) == PREPROCESSED_ALL_SHA256
 
 
 @pytest.mark.slow

@@ -1,7 +1,15 @@
 """Single-table STARK proofs of the PyTorch port against the JAX package:
 `proof_to_json` byte-identical for the Fibonacci-with-product AIR of
 tests/test_stark.py, defined over the port's Stark, with and without
-proof of work; each package's verifier accepts the other's proof."""
+proof of work; each package's verifier accepts the other's proof.
+
+The JAX package's proofs take XLA compiles of tens of seconds each on
+the CPU, so tier-1 holds the port's proofs to their sha256 constants
+(JAX_FIB_SHA256, JAX_RANGE_SHA256) and the `slow` tests (`-m slow`) make
+the JAX proofs, check the constants and have the port's verifier accept
+them."""
+
+import hashlib
 
 import pytest
 import torch
@@ -21,6 +29,16 @@ from zk_evm_tpu_torch.stark.prover import resolve_device
 from zk_evm_tpu_torch.stark.serialization import proof_to_json
 from test_lookup_ctl import RangeStark as JRangeStark, range_trace
 from test_stark import FibStark as JFibStark, fib_trace
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread runs these small CPU proofs and hashes as fast
+    as many and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class FibStark(Stark):
@@ -44,6 +62,20 @@ class FibStark(Stark):
         cc.constraint_last_row(x1 - pi[2])
 
 
+# sha256 of the JAX package's proof_to_json(prove_stark(...)) of the
+# 64-row Fibonacci trace at _cfgs(pow_bits), by pow_bits, and of the
+# 32-row one-lookup RangeStark at _cfgs(0)
+JAX_FIB_SHA256 = {
+    0: "688f120483ae0b63fc1e46685b811ceee1b3e881c853b6a3a366d56fb1512df0",
+    8: "322123b2ea884d8bcd2494b35ac09c59747b8c4991104f802509910c4b268357"}
+JAX_RANGE_SHA256 = (
+    "4206d5d12fce942356f69636067ea45bece9a65c57c23088af1d46907e245728")
+
+
+def _sha256(proof) -> str:
+    return hashlib.sha256(proof_to_json(proof).encode()).hexdigest()
+
+
 def _cfgs(pow_bits):
     kw = dict(rate_bits=1, cap_height=2, proof_of_work_bits=pow_bits,
               num_query_rounds=2, arity_bits=2, final_poly_bits=2)
@@ -53,17 +85,17 @@ def _cfgs(pow_bits):
 
 @pytest.fixture(scope="module", params=[0, 8], ids=["no_pow", "pow8"])
 def fib_proofs(request):
+    """(port proof, pow_bits, cfg, jcfg, public inputs)."""
     trace, pis = fib_trace(64)
     cfg, jcfg = _cfgs(request.param)
     proof = prove_stark(FibStark(), trace, cfg, Challenger(), pis,
                         device="cpu")
-    jproof = jprove_stark(JFibStark(), trace, jcfg, JChallenger(), pis)
-    return proof, jproof, cfg, jcfg, pis
+    return proof, request.param, cfg, jcfg, pis
 
 
 def test_fib_proof_json_identical(fib_proofs):
-    proof, jproof, *_ = fib_proofs
-    assert proof_to_json(proof) == jproof_to_json(jproof)
+    proof, pow_bits, *_ = fib_proofs
+    assert _sha256(proof) == JAX_FIB_SHA256[pow_bits]
 
 
 def test_fib_port_verifier_accepts(fib_proofs):
@@ -80,9 +112,24 @@ def test_fib_jax_verifier_accepts_port_proof(fib_proofs):
 
 
 def test_fib_port_verifier_accepts_jax_proof(fib_proofs):
-    _, jproof, cfg, _, _ = fib_proofs
-    verify_stark(FibStark(), convert.proof_from_json(jproof_to_json(jproof)),
+    """The JAX proof's text is the port's (test_fib_proof_json_identical;
+    the `slow` test reads the JAX package's own)."""
+    proof, _, cfg, _, _ = fib_proofs
+    verify_stark(FibStark(), convert.proof_from_json(proof_to_json(proof)),
                  cfg, Challenger())
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("pow_bits", [0, 8], ids=["no_pow", "pow8"])
+def test_jax_fib_proof_constants(pow_bits):
+    trace, pis = fib_trace(64)
+    cfg, jcfg = _cfgs(pow_bits)
+    jjson = jproof_to_json(jprove_stark(JFibStark(), trace, jcfg,
+                                        JChallenger(), pis))
+    assert hashlib.sha256(jjson.encode()).hexdigest() == \
+        JAX_FIB_SHA256[pow_bits]
+    verify_stark(FibStark(), convert.proof_from_json(jjson), cfg,
+                 Challenger(), expected_public_inputs=pis)
 
 
 def _bump(v):
@@ -195,18 +242,26 @@ def test_lookups_refused():
     class WithProgram(WithPreprocessed):
         def preprocessed(self):
             return trace[:1]
-    cfg, jcfg = _cfgs(0)
+    cfg, _ = _cfgs(0)
     with pytest.raises(AssertionError):
         prove_stark(WithPreprocessed(), trace, cfg, Challenger(), pis,
                     device="cpu")
     proof = prove_stark(WithProgram(), trace, cfg, Challenger(), pis,
                         device="cpu")
     verify_stark(WithProgram(), proof, cfg, Challenger(), device="cpu")
-    rtrace = range_trace(32)
-    proof = prove_stark(RangeStark(), rtrace, cfg, Challenger(),
+    proof = prove_stark(RangeStark(), range_trace(32), cfg, Challenger(),
                         device="cpu")
-    jproof = jprove_stark(JRangeStark(), rtrace, jcfg, JChallenger())
-    assert proof_to_json(proof) == jproof_to_json(jproof)
+    assert _sha256(proof) == JAX_RANGE_SHA256
+
+
+@pytest.mark.slow
+def test_jax_range_proof_constant():
+    cfg, jcfg = _cfgs(0)
+    jjson = jproof_to_json(jprove_stark(JRangeStark(), range_trace(32), jcfg,
+                                        JChallenger()))
+    assert hashlib.sha256(jjson.encode()).hexdigest() == JAX_RANGE_SHA256
+    verify_stark(RangeStark(), convert.proof_from_json(jjson), cfg,
+                 Challenger())
 
 
 def test_prove_stark_needs_cuda_or_explicit_cpu():

@@ -10,10 +10,11 @@ PyTorch versions below, `permute_plain` and `hash_rows_plain`, which the
 CPU tests hold against the JAX package and the exact host twin, and which
 the chip check holds the kernels against.
 
-The plain MDS multiply exploits the small circulant (entries <= 41): each
+The plain MDS multiply exploits the small circulant (entries < 2^6): each
 element splits into two 32-bit halves, each half's matrix-vector product is
-an exact int64 sum (< 2^42), and one Goldilocks reduction per element
-follows — no general field multiplies.
+an exact integer sum (< 2^42, so one float64 matmul computes it
+exactly), and one Goldilocks reduction per element follows — no general
+field multiplies.
 """
 
 from __future__ import annotations
@@ -43,12 +44,14 @@ def mds_matrix_np() -> np.ndarray:
     return m
 
 
-def _mds(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
-    """Circulant-MDS multiply along the last axis (size 12)."""
-    lo = (x & gl.M32).unsqueeze(-2)                 # (..., 1, 12)
-    hi = ((x >> 32) & gl.M32).unsqueeze(-2)
-    acc_lo = (lo * mat).sum(-1)                     # (..., 12), < 2^42
-    acc_hi = (hi * mat).sum(-1)
+def _mds(x: torch.Tensor, mat_t: torch.Tensor) -> torch.Tensor:
+    """Circulant-MDS multiply along the last axis (size 12); `mat_t` is
+    the transposed matrix as float64. Every product and partial sum is an
+    integer below 2^42 < 2^53, so one float64 matmul computes both
+    halves' sums exactly (on the CPU about 3x faster than int64 products
+    and sums)."""
+    halves = torch.stack([x & gl.M32, (x >> 32) & gl.M32])
+    acc_lo, acc_hi = (halves.to(torch.float64) @ mat_t).to(torch.int64)
     # value = acc_lo + acc_hi * 2^32 < 2^74: carry into a 96-bit limb form
     h = acc_hi + (acc_lo >> 32)                     # < 2^43
     n0 = (acc_lo & gl.M32) | ((h & gl.M32) << 32)
@@ -66,7 +69,7 @@ def permute_plain(state: GF) -> GF:
     params = pp.default_params()
     dev = state.device
     rcs = gl.from_u64(pp.round_constants_np(), dev)
-    mat = torch.from_numpy(mds_matrix_np()).to(dev)
+    mat_t = torch.from_numpy(mds_matrix_np().T.astype(np.float64)).to(dev)
     h = params.half_full_rounds
     n_partial = params.n_partial_rounds
     s = state.v
@@ -76,7 +79,7 @@ def permute_plain(state: GF) -> GF:
             s = torch.cat([_sbox7(s[..., :1]), s[..., 1:]], dim=-1)
         else:
             s = _sbox7(s)
-        s = _mds(s, mat)
+        s = _mds(s, mat_t)
     return GF(s)
 
 
