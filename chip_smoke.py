@@ -14,8 +14,8 @@ at widths whose n_cols % 8 runs from 0 to 7, at row counts that are and
 are not multiples of the planes sponge's tile, and, for the planes
 sponge, on views it reads in place or through its aligned copy: an odd
 row stride, a column-sliced view with a base off 16 bytes, one 16 bytes
-on. Then it drives ten paths of the port, each with the kernels' launch
-counts set to 0 just before and read just after:
+on. Then it drives eleven paths of the port, each with the kernels'
+launch counts set to 0 just before and read just after:
 
 1. LogicStark: a 2^12-row proof on CUDA equals the CPU proof byte for
    byte; a 2^16-row, 523-column LogicStark is proved at the standard
@@ -146,6 +146,24 @@ counts set to 0 just before and read just after:
    127.0.0.1 serving a toy block, returns the JAX package's object, whose
    decoded roots are the node's. The kernels line reports path 10's
    launches of each kernel as `mesh_launches`.
+11. Programs assembled by the port's kernel-asm toolchain
+   (`witness/asm_parser.py`, `stack_search.py`, `optimizer.py`,
+   `assembler.py`), read from tests/data/asm_programs.json: the six
+   snippet programs of tests/test_cpu.py and a loop (a macro with an
+   argument, an @constant, a %stack directive, a local label and JUMPI;
+   optimize=True) whose 62,412 steps fill a CPU table of 85 x 2^16 rows.
+   Each code hash must equal the JAX assembler's pin; each program is
+   interpreted to an empty stack at 0xdeadbeef and its CPU rows built.
+   test_cpu.py's SRC is proved on the card at tests/test_stark.py's
+   test config and its `proof_to_json` sha256 must equal the JAX
+   package's; the loop's table is proved at the standard config,
+   verified by the port's verifier, and rejected with one FRI opening
+   changed. The loop kernel goes through the kernel cache
+   (`orchestration/persistence.py`: `save_kernel`, `load_kernel`) and
+   `run_kernel` of its routine returns the pinned sum; `python -m
+   zk_evm_tpu_torch lsp`, in a process of its own, answers a framed
+   session (initialize, semanticTokens/full, definition, hover,
+   shutdown) with the pinned replies.
 
 The CPU proofs that paths 1, 3, 4 and 5 are held to (LogicStark 2^12
 under each hasher, the 2^10 memory chain, the cdk scenario) are made in
@@ -181,6 +199,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -207,6 +226,7 @@ from zk_evm_tpu_torch.orchestration.aggregation import (
     FinalPublicValues, aggregate_block, check_checkpoint_block,
     consolidate_hashes, prove_block_batches,
     rewrite_checkpoint_consolidation, verify_block_chain)
+from zk_evm_tpu_torch.orchestration import persistence
 from zk_evm_tpu_torch.orchestration.block import prove_block, verify_block
 from zk_evm_tpu_torch.recursion import aggregate as agg
 from zk_evm_tpu_torch.recursion import vm
@@ -231,15 +251,15 @@ from zk_evm_tpu_torch.stark.public_values import (h256_limbs as pvm_h256,
                                                   public_values_from_dict)
 from zk_evm_tpu_torch.stark.serialization import (block_proof_from_json,
                                                   proof_to_json)
-from zk_evm_tpu_torch.tables import all_stark, cpu_columns as cc, logic, \
-    memory
+from zk_evm_tpu_torch.tables import all_stark, cpu, cpu_columns as cc, \
+    logic, memory
 from zk_evm_tpu_torch.tables.memory_chain import (chain_traces,
                                                   preinitialized_words)
 from zk_evm_tpu_torch.tables.scenarios import build_cdk_poseidon_scenario
 from zk_evm_tpu_torch.tables.segments import Segment
 from zk_evm_tpu_torch.timing import TimingTree, timed
-from zk_evm_tpu_torch.witness import native_vm
-from zk_evm_tpu_torch.witness.interpreter import Interpreter
+from zk_evm_tpu_torch.witness import asm_parser, assembler, native_vm
+from zk_evm_tpu_torch.witness.interpreter import Interpreter, run_kernel
 from zk_evm_tpu_torch.witness.kernel import combined_kernel
 from zk_evm_tpu_torch.witness.segments import generate_segment_tables
 from zk_evm_tpu_torch.witness.testing_fixtures import (
@@ -295,6 +315,14 @@ SERVICE_IDLE_S = 60                         # the worker's idle timeout
 # tests/test_torch_service.py holds the same constant
 PROVE_BLOCK_SIMPLE_TRANSFER_SHA256 = (
     "ecc259fe9b373d56dc13c5d3fae1ae0890f1c10a98d7e5acc1238baa7edc9192")
+# path 11: programs assembled by the port, their code hashes pinned from
+# the JAX assembler (tests/test_torch_assembler.py holds both assemblers to
+# them), the pinned sha256 of the JAX package's test-config CPU-table
+# proof of test_cpu.py's SRC, and the language server's pinned replies
+ASM_PROGRAMS = REPO / "tests" / "data" / "asm_programs.json"
+ASM_TEST_CFG_KW = dict(rate_bits=1, cap_height=2, proof_of_work_bits=0,
+                       num_query_rounds=2, arity_bits=2, final_poly_bits=2)
+HALT = 0xDEADBEEF
 # the recursion phase
 WRAP_SEGMENT_LOG = 14                       # simple-transfer: 3 segments
 WRAP_ONE_PROOF_LOG = 21                     # larger Rvm traces are chunked
@@ -1363,12 +1391,19 @@ def phase_wrap_small(dev) -> None:
         f"verify_system accepts it in {time.perf_counter() - t1:.2f} s")
 
 
+def change_opening(stark_proof, oracle: int) -> None:
+    """Change one FRI opening of a table's proof in place: the first
+    query's leaf of one of its oracles."""
+    leaves = stark_proof.fri_proof.query_rounds[0].initial.leaves
+    leaves[oracle] = [(int(leaves[oracle][0]) + 1) % P] \
+        + list(leaves[oracle][1:])
+
+
 def tampered_opening(proof):
     """A copy of a 3-table wrap proof with one FRI opening changed: the
     first query's leaf of the Rvm's witness oracle."""
     bad = copy.deepcopy(proof)
-    leaves = bad.proofs[RVM].fri_proof.query_rounds[0].initial.leaves
-    leaves[1] = [(int(leaves[1][0]) + 1) % P] + list(leaves[1][1:])
+    change_opening(bad.proofs[RVM], 1)
     return bad
 
 
@@ -2130,6 +2165,144 @@ def phase_mesh(rng, dev, smi: str, chain_launches: dict,
     return launches
 
 
+def assembled(program: dict, source: str):
+    """`program` assembled by the port; its code hash must be the pinned
+    one."""
+    constants, opcodes, _ = assembler.load_tables()
+    kernel = assembler.assemble([asm_parser.parse(source)], constants,
+                                opcodes, optimize=program["optimize"])
+    if kernel.code_hash.hex() != program["code_hash"]:
+        raise AssertionError(f"{program['entry']}: code hash "
+                             f"{kernel.code_hash.hex()} != the JAX "
+                             f"assembler's {program['code_hash']}")
+    return kernel
+
+
+def run_program(kernel, entry: str) -> Interpreter:
+    """Interpret a program from `entry`; it must end with an empty stack at
+    HALT."""
+    interp = Interpreter(kernel, initial_offset=kernel.global_labels[entry])
+    interp.run()
+    if interp.stack() or interp.registers.program_counter != HALT:
+        raise AssertionError(f"{entry}: stopped at pc "
+                             f"{interp.registers.program_counter:#x} with "
+                             f"stack {interp.stack()}")
+    return interp
+
+
+def lsp_frames(messages: list) -> bytes:
+    out = b""
+    for m in messages:
+        body = json.dumps(m).encode()
+        out += f"Content-Length: {len(body)}\r\n\r\n".encode() + body
+    return out
+
+
+def lsp_replies(raw: bytes) -> list:
+    replies = []
+    while raw:
+        head, _, rest = raw.partition(b"\r\n\r\n")
+        length = int(head.split(b":")[1])
+        replies.append(json.loads(rest[:length]))
+        raw = rest[length:]
+    return replies
+
+
+def phase_assembled(dev, smi: str) -> dict:
+    """Path 11, programs assembled by the port; returns the loop table's
+    proof's launches."""
+    programs = json.loads(ASM_PROGRAMS.read_text())
+    native.require()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rows = {}
+    for p in programs["cpu_programs"]:
+        interp = run_program(assembled(p, p["source"]), p["entry"])
+        rows[p["entry"]] = cpu.cpu_rows_from_run(interp)
+    loop = programs["loop"]
+    kernel = assembled(loop, loop["source"].replace(
+        "ITERATIONS", str(loop["iterations"])))
+    interp = run_program(kernel, loop["entry"])
+    steps = interp._nvm.trace_len()
+    trace, stark = cpu.cpu_rows_from_run(interp)
+    t1 = time.perf_counter()
+    if steps != loop["steps"] or trace.shape != (cc.NUM_CPU_COLUMNS, 1 << 16):
+        raise AssertionError(f"loop: {steps} steps, table {trace.shape}")
+    log(f"assembled programs: {len(rows)} snippets of test_cpu.py and the "
+        f"loop (n = {loop['iterations']}, optimize=True, {len(kernel.code)} "
+        f"code bytes) assembled with the JAX assembler's code hashes, "
+        f"interpreted to an empty stack at {HALT:#x} and their CPU rows "
+        f"built in {t1 - t0:.2f} s; the loop ran {steps} steps, table "
+        f"{trace.shape[0]} x 2^16")
+
+    cfg = StarkConfig(security_bits=1, fri_config=FriConfig(**ASM_TEST_CFG_KW))
+    t0 = time.perf_counter()
+    small_trace, small_stark = rows["stack_test"]
+    small = prove_stark(small_stark, small_trace, cfg, Challenger(),
+                        device=dev)
+    digest = proof_sha256(small)
+    if digest != programs["stack_test_proof_sha256"]:
+        raise AssertionError(f"stack_test CPU-table proof sha256 {digest} "
+                             f"!= the JAX package's")
+    log(f"stack_test CPU table (85 x 16) proved on the card at the test "
+        f"config in {time.perf_counter() - t0:.2f} s: proof_to_json sha256 "
+        f"== the JAX package's {digest[:8]}…")
+
+    std = StarkConfig.standard_fast_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = read_counts()
+    tree = TimingTree("prove CpuStark 2^16 (the loop)")
+    with tree:
+        proof = prove_stark(stark, trace, std, Challenger(), device=dev)
+    launches = launches_since(before)
+    check_launches(launches, "poseidon", "the loop's CPU-table proof")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"loop CPU table 85 x 2^16 at the standard config, "
+        f"{len(proof.fri_proof.query_rounds)} queries, pow witness "
+        f"{proof.fri_proof.pow_witness} [{smi}]:")
+    print_tree(tree)
+    t0 = time.perf_counter()
+    verify_stark(stark, proof, std, Challenger())
+    verify_s = time.perf_counter() - t0
+    bad = copy.deepcopy(proof)
+    change_opening(bad, 0)
+    reject_s = expect_rejection("the loop proof with a changed FRI opening",
+                                lambda: verify_stark(stark, bad, std,
+                                                     Challenger()))
+    log(f"  {tree.root.elapsed:9.3f} s  total; peak device memory "
+        f"{peak:.2f} GiB; verified by the port's verifier in "
+        f"{verify_s:.2f} s; a changed FRI opening rejected in "
+        f"{reject_s:.2f} s; launches {launches}")
+
+    with tempfile.TemporaryDirectory() as cache:
+        loaded = persistence.load_kernel(persistence.save_kernel(cache,
+                                                                 kernel))
+    got = run_kernel(loaded, loop["routine"],
+                     [HALT, loop["iterations"]]).stack()
+    if got != [loop["sum"]]:
+        raise AssertionError(f"run_kernel of the cached loop kernel: {got}")
+    session = programs["lsp"]
+    env = {k: v for k, v in os.environ.items() if k != "ZK_EVM_REFERENCE"}
+    out = subprocess.run([sys.executable, "-m", "zk_evm_tpu_torch", "lsp"],
+                         input=lsp_frames(session["messages"]),
+                         capture_output=True, cwd=REPO, env=env, timeout=120,
+                         check=True)
+    if lsp_replies(out.stdout) != session["replies"]:
+        raise AssertionError(f"lsp replies {out.stdout[:400]!r} != the "
+                             f"pinned ones")
+    log(f"kernel cache: the loop kernel saved and loaded, run_kernel("
+        f"{loop['routine']}, n = {loop['iterations']}) == {loop['sum']}; "
+        f"`python -m zk_evm_tpu_torch lsp` answered initialize, "
+        f"semanticTokens/full, definition, hover and shutdown as pinned")
+    phase = read_counts()
+    for name in ("poseidon_permute", "poseidon_sponge"):
+        if phase[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched in path 11")
+    return launches
+
+
 ROW_SHAPES = {
     "keccak_rows": (2 << LOGIC_LOG_ROWS, logic.NUM_COLUMNS),
     "poseidon_permute": (PERMUTE_BATCHES[-1],),
@@ -2206,11 +2379,13 @@ def main() -> None:
     del chain_wrap, block_wrap
     mesh_launches = clock_of("mesh", phase_mesh, rng, dev, smi,
                              chain_launches, chain_sha, chain_stages)
+    assembled_launches = clock_of("assembled", phase_assembled, dev, smi)
     log(clock_of.summary())
     log(f"dense launches: simple-transfer block {block_launches}, chain "
         f"wrap {wrap_launches}, block wrap {block_wrap_launches}, "
         f"two-to-one {two_to_one_launches}, witness chain "
-        f"{witness_launches}, service {service_launches}")
+        f"{witness_launches}, service {service_launches}, assembled "
+        f"loop's CPU table {assembled_launches}")
     log(f"keccak launches: memory chain under hasher keccak "
         f"{keccak_launches}")
     log(f"path 10 (one proof over several devices) launches: "

@@ -170,7 +170,13 @@ def test_port_imports_no_jax():
                  "zk_evm_tpu_torch.orchestration.persistence",
                  "zk_evm_tpu_torch.orchestration.queue",
                  "zk_evm_tpu_torch.orchestration.leader_http",
-                 "zk_evm_tpu_torch.witness.debug"):
+                 "zk_evm_tpu_torch.witness.debug",
+                 "zk_evm_tpu_torch.witness.asm_parser",
+                 "zk_evm_tpu_torch.witness.stack_search",
+                 "zk_evm_tpu_torch.witness.optimizer",
+                 "zk_evm_tpu_torch.witness.assembler",
+                 "zk_evm_tpu_torch.witness.lsp",
+                 "zk_evm_tpu_torch.witness.extract_constants"):
         assert name in out["modules"]
     assert out["loaded"] == []
 
@@ -208,8 +214,11 @@ def test_mesh_refusals_do_not_fall_back():
 # device or require the native tape core (`tests/test_torch_recursion.py`),
 # the witness debug tooling (`witness/debug.py`, `tests/test_torch_debug.py`),
 # the runtime config, which keeps only the settings a command reads
-# (`tests/test_torch_runtime_config.py`), and the service layer's queue,
-# leader, prover and proof files (`tests/test_torch_service.py`).
+# (`tests/test_torch_runtime_config.py`), the service layer's queue,
+# leader, prover and proof files (`tests/test_torch_service.py`), and the
+# kernel-asm assembler, language server and constant extractor, which
+# read a zk_evm checkout only where ZK_EVM_REFERENCE names one
+# (`tests/test_torch_assembler.py`, `tests/test_torch_lsp.py`).
 VERBATIM_COPIES = [
     "field/host.py", "field/np_field.py", "field/hext.py",
     "hash/poseidon_params.py", "challenger/challenger.py",
@@ -225,12 +234,16 @@ VERBATIM_COPIES = [
     "decoder/inputs.py", "decoder/observer.py", "smt/__init__.py",
     "mpt/builder.py",
     "rpc/__init__.py", "rpc/provider.py", "rpc/block_interval.py",
-    "rpc/fetch.py",
+    "rpc/fetch.py", "witness/stack_search.py", "witness/optimizer.py",
 ]
 
 # Copies that differ from the reference only in the lines listed, and why.
 # Every other line is the reference's, byte for byte.
 EDITED_COPIES = {
+    # the docstring names the upstream crate instead of a local checkout
+    "witness/asm_parser.py": {
+        4: "reference defines in pest form (zk_evm's "
+           "evm_arithmetization/src/"},
     # the docstring names the upstream crate instead of a local checkout
     "smt/smt.py": {3: ("Functional twin of the reference's smt_trie crate "
                        "(zk_evm's")},

@@ -44,6 +44,10 @@ zero/src/bin/):
   trie-diff A B
           structural diff of two trie-shape JSON dumps (a witness
           debug bundle's); exit 1 with the diff lines, 0 without
+  lsp     the kernel-asm language server over stdio (semantic tokens,
+          definition, hover; witness/lsp.py); it indexes the kernel's
+          .asm tree when ZK_EVM_REFERENCE names a zk_evm checkout, else
+          only the open documents
 
 `prove`, `verify` and `worker` run on CUDA unless `--device cpu` is given;
 without a card they raise rather than fall back to the CPU. `bench` needs
@@ -284,6 +288,14 @@ def cmd_trie_diff(args) -> int:
     return 1 if diffs else 0
 
 
+def cmd_lsp(args) -> int:
+    """Kernel-asm language server over stdio (lsp-server.rs twin)."""
+    del args
+    from .witness.lsp import main as lsp_main
+    lsp_main()
+    return 0
+
+
 def main(argv=None) -> int:
     from . import metrics, runtime_config
     p = argparse.ArgumentParser(prog="zk_evm_tpu_torch")
@@ -354,6 +366,8 @@ def main(argv=None) -> int:
                         "(or ZK_OUTPUT_DIR; default the working "
                         "directory)")
     w.set_defaults(fn=cmd_worker)
+    lsp = sub.add_parser("lsp", help="kernel-asm language server (stdio)")
+    lsp.set_defaults(fn=cmd_lsp)
     td = sub.add_parser("trie-diff",
                         help="diff two trie-shape JSON dumps")
     td.add_argument("a")

@@ -15,9 +15,10 @@ Python twin of the reference's execution stack:
   handling: zk_evm's evm_arithmetization/src/cpu/kernel/
   interpreter.rs:120-420,647
 
-One class serves the reference's jumpdest-analysis pre-runs
-(is_jumpdest_analysis) and full block execution (init -> halt ->
-exc_stop -> halt_final) driven by `GenerationInputs`, for the
+One class serves the reference's three roles: kernel-routine runs
+(`run_kernel`: from a label with a crafted stack), jumpdest-analysis
+pre-runs (is_jumpdest_analysis), and full block execution (init -> halt
+-> exc_stop -> halt_final) driven by `GenerationInputs`, for the
 eth_mainnet flavor only.
 """
 
@@ -1588,6 +1589,18 @@ def _proofs_and_jumpdests(code: bytes, largest: int,
         b = code[i]
         i += 1 + (b - 0x5F if 0x60 <= b <= 0x7F else 0)
     return proofs
+
+
+def run_kernel(kernel: Kernel, label: str, initial_stack):
+    """Run a kernel routine: initial_stack is bottom-first, typically
+    [0xDEADBEEF(retdest), ...args]. Returns the interpreter."""
+    interp = Interpreter(kernel, kernel.global_labels[label])
+    for v in initial_stack:
+        interp.push(v)
+    # RlpRaw[0] = 0x80, as the reference's test interpreter presets it
+    # (interpreter.rs:499-503) — routine tests may read it unwritten
+    interp.memory.set(0, Segment.RlpRaw, 0, 0x80)
+    return interp.run()
 
 
 def initial_registers(kernel: Kernel) -> Registers:
