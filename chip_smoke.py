@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (zk_evm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py b1033-wrap     # path 12 with every chunk proved
 
 Builds the four hand-written CUDA Poseidon kernels and the keccak256
 rows kernel from zk_evm_tpu_torch/csrc/ (one nvcc per source, started
@@ -14,7 +15,7 @@ at widths whose n_cols % 8 runs from 0 to 7, at row counts that are and
 are not multiples of the planes sponge's tile, and, for the planes
 sponge, on views it reads in place or through its aligned copy: an odd
 row stride, a column-sliced view with a base off 16 bytes, one 16 bytes
-on. Then it drives eleven paths of the port, each with the kernels'
+on. Then it drives twelve paths of the port, each with the kernels'
 launch counts set to 0 just before and read just after:
 
 1. LogicStark: a 2^12-row proof on CUDA equals the CPU proof byte for
@@ -90,7 +91,7 @@ launch counts set to 0 just before and read just after:
    (`verify_stark_tape`) and the tape proved by `prove_system` on the
    card: its `proof_to_json` sha256 equals the JAX package's, which
    tier-1 holds the port's CPU proof to. Then simple-transfer's segment chain at the test config
-   (max_cpu_len_log 14: three segments, the nine tables at their real
+   (max_cpu_len_log 15: two segments, the nine tables at their real
    widths) is proved on the card, verified by the host, and the whole
    chain verified in one NativeTape (`wrap_segment_chain`, its statement
    hashed into 4 public inputs by `sponge_hash`; the fixture's statement
@@ -164,6 +165,23 @@ launch counts set to 0 just before and read just after:
    zk_evm_tpu_torch lsp`, in a process of its own, answers a framed
    session (initialize, semanticTokens/full, definition, hover,
    shutdown) with the pinned replies.
+12. A real mainnet batch wrapped at the production config: the JAX
+   package's standard-config proof of mainnet block 1033, batch 0 (two
+   segments, the nine tables at 84 FRI queries and 16-bit proof of work,
+   `b1033_batch0.zkproof.gz`) is verified in one NativeTape
+   (`wrap_segment_chain`, the kernel's memory cap committed on the card,
+   its statement hashed into 4 public inputs equal to the host
+   `hash_no_pad` of segment 0's); the tape's 22 chunks of 2^20 ops are
+   split one at a time and hashed (their Rvm then RAM traces, equal to
+   the JAX package's) on a thread, their boundary maps chained, while
+   chunks 0, 1 and the last are proved at the standard config and
+   verified (`verify_chunk`), chunk 0's MemAfter cap equal to chunk 1's
+   MemBefore cap. Proving three chunks of 22 is a cut in depth:
+   `python3 chip_smoke.py b1033-wrap` proves and verifies all 22
+   (`prove_chunked`, `verify_chunked`) and is not part of this run. A
+   chunk proof with a changed FRI opening is rejected, and children with
+   block_gas_used + 1 or a changed proof-of-work witness fail while their
+   tapes are built.
 
 The CPU proofs that paths 1, 3, 4 and 5 are held to (LogicStark 2^12
 under each hasher, the 2^10 memory chain, the cdk scenario) are made in
@@ -171,7 +189,7 @@ one process of their own, at the lowest priority with
 CPU_REFERENCE_THREADS torch threads, started before the kernels are
 built. The kernels' checks and CUDA-event timings and the comparisons
 with those CPU proofs run while it works; the timed paths (commit_cap,
-LogicStark 2^16, the 2^20 chains, then paths 6-9) run after it has
+LogicStark 2^16, the 2^20 chains, then paths 6-12) run after it has
 ended, with nothing of this script beside them. A closing line gives
 each phase's wall seconds.
 
@@ -195,6 +213,7 @@ import io
 import json
 import multiprocessing
 import os
+import queue
 import shutil
 import socket
 import subprocess
@@ -230,8 +249,9 @@ from zk_evm_tpu_torch.orchestration import persistence
 from zk_evm_tpu_torch.orchestration.block import prove_block, verify_block
 from zk_evm_tpu_torch.recursion import aggregate as agg
 from zk_evm_tpu_torch.recursion import vm
-from zk_evm_tpu_torch.recursion.continuation import (prove_chunked,
-                                                     verify_chunked)
+from zk_evm_tpu_torch.recursion.continuation import (
+    AFTER_T, BEFORE_T, iter_split_tape, prove_chunk, prove_chunked,
+    verify_chunk, verify_chunked)
 from zk_evm_tpu_torch.recursion.system import (RVM, prove_system,
                                                verify_system)
 from zk_evm_tpu_torch.recursion.tape_lib import sponge_hash
@@ -249,7 +269,8 @@ from zk_evm_tpu_torch.stark import (FriConfig, PolynomialBatch, Stark,
                                     verify_all, verify_stark)
 from zk_evm_tpu_torch.stark.public_values import (h256_limbs as pvm_h256,
                                                   public_values_from_dict)
-from zk_evm_tpu_torch.stark.serialization import (block_proof_from_json,
+from zk_evm_tpu_torch.stark.serialization import (all_proof_from_dict,
+                                                  block_proof_from_json,
                                                   proof_to_json)
 from zk_evm_tpu_torch.tables import all_stark, cpu, cpu_columns as cc, \
     logic, memory
@@ -324,7 +345,7 @@ ASM_TEST_CFG_KW = dict(rate_bits=1, cap_height=2, proof_of_work_bits=0,
                        num_query_rounds=2, arity_bits=2, final_poly_bits=2)
 HALT = 0xDEADBEEF
 # the recursion phase
-WRAP_SEGMENT_LOG = 14                       # simple-transfer: 3 segments
+WRAP_SEGMENT_LOG = 15                       # simple-transfer: 2 segments
 WRAP_ONE_PROOF_LOG = 21                     # larger Rvm traces are chunked
 WRAP_CHUNK_LOG = 20                         # prove_chunked's rows_log
 FIB_ROWS = 16
@@ -341,7 +362,7 @@ FIB_WRAP_SHA256 = (
 # wrap's tape, equal between the packages (the `slow` test of
 # tests/test_torch_recursion.py)
 WRAP_TAPE_SHA256 = (
-    "c23d71573100db0690da7aba22924e3ea69562ab9888fa78d2dfe1e0008997d0")
+    "1db1c79025b9fed5790ec18f819019ba7c0c62311eda6de3f253622b587b43b6")
 # add11's block wrap: its batches at the test config in segments of at
 # most 2^15 CPU rows (two segments, then one), wrapped by `wrap_block`
 BLOCK_WRAP_SEGMENT_LOG = 15
@@ -351,6 +372,19 @@ BLOCK_WRAP_SEGMENTS = [2, 1]
 # tests/test_torch_block_wrap.py)
 BLOCK_WRAP_TAPE_SHA256 = (
     "71f0801850c5e8868925151f03c78b6dbc80f0d88a338264c8895bbf3122e860")
+# path 12: the two standard-config segments of B1033_PROOF (mainnet block
+# 1033, batch 0) verified in one `wrap_segment_chain` tape, split into
+# chunks of 2^WRAP_CHUNK_LOG ops; the run proves B1033_PROVED_CHUNKS of
+# them, a cut in depth (`python3 chip_smoke.py b1033-wrap` proves all)
+B1033_BLOCK = 1033
+B1033_WRAP_OPS = 22_343_757
+B1033_WRAP_CHUNKS = 22
+B1033_PROVED_CHUNKS = (0, 1, B1033_WRAP_CHUNKS - 1)
+# sha256 over every chunk's Rvm trace's then RAM trace's bytes, in order
+# (`chunks_sha256`), equal between the packages (the `slow` test of
+# tests/test_torch_b1033_wrap.py)
+B1033_WRAP_TAPE_SHA256 = (
+    "423a2481c0168f4e077429cb3f3f8477b45bd3fb9452ae21ce49b6267b284e46")
 # leaf shapes (n_cols, n_rows) of the main paths: the commit benchmark's
 # 2^16-row LDE, the Logic trace's and the Memory trace's LDEs, and the
 # planes sponge's shape in compare_poseidon_layouts
@@ -938,6 +972,28 @@ def stage_seconds(tree: TimingTree) -> dict:
     return out
 
 
+def commit_seconds(tree: TimingTree) -> float:
+    """Seconds of the commitments (the outermost "commit ..." scopes),
+    summed over the tree."""
+    def walk(node):
+        if node.name.startswith("commit "):
+            return node.elapsed
+        return sum(walk(child) for child in node.children)
+    return walk(tree.root)
+
+
+def log_prove_tree(tree: TimingTree, launches: dict) -> None:
+    """A proof's timing tree, then its total, the commitments' and
+    STAGES' seconds over every table, the peak and the launches."""
+    print_tree(tree)
+    log(f"  {tree.root.elapsed:9.3f} s  total; stages (all tables) "
+        f"commit {commit_seconds(tree):.2f}, "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_seconds(tree).items())
+        + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+
+
 def phase_chain_full(dev, smi: str, hasher: str = "poseidon") -> tuple:
     """The 2^20-row chain proved and verified: (launches, sha256 of the
     proof's JSON, seconds of each of STAGES)."""
@@ -1479,13 +1535,7 @@ def prove_wrap_tape(t, std: StarkConfig, dev, what: str, smi: str) -> tuple:
     how = (f"{len(chunks)} chunks of 2^{WRAP_CHUNK_LOG} ops" if chunked
            else "one proof")
     log(f"{what} proved at the standard config, {how} [{smi}]:")
-    print_tree(tree)
-    stages = stage_seconds(tree)
-    log(f"  {tree.root.elapsed:9.3f} s  total; stages (all tables) "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
-        + f"; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{launches}")
+    log_prove_tree(tree, launches)
     if chunks is not None:
         log("  chunks: " + "; ".join(
             f"Rvm {c.rvm_trace.shape}, RvmMem {c.ram_trace.shape}, "
@@ -1734,6 +1784,221 @@ def phase_two_to_one(dev, smi: str, left, right) -> dict:
         f"{bad_open:.2f} s; a child with a changed FRI opening failed "
         f"while its tape was built in {bad_child:.2f} s")
     return launches
+
+
+def b1033_segments() -> list:
+    """The segment AllProofs of B1033_PROOF, loaded as `verify` loads a
+    segment list."""
+    with gzip.open(B1033_PROOF) as f:
+        return [all_proof_from_dict(d) for d in json.loads(f.read())]
+
+
+def tampered_pow(ap):
+    """A copy of a segment proof with its first table's proof-of-work
+    witness + 1."""
+    first = ap.proofs[0]
+    bad = dataclasses.replace(first, fri_proof=dataclasses.replace(
+        first.fri_proof, pow_witness=first.fri_proof.pow_witness + 1))
+    return dataclasses.replace(ap, proofs=[bad] + list(ap.proofs[1:]))
+
+
+def chunks_sha256(chunks, keep=lambda ch: None) -> tuple:
+    """sha256 over each chunk's Rvm trace's then RAM trace's bytes, in
+    order, and the chunks' (before, after) maps; `keep` sees every chunk
+    once it is hashed."""
+    h = hashlib.sha256()
+    maps = []
+    for ch in chunks:
+        h.update(np.ascontiguousarray(ch.rvm_trace))
+        h.update(np.ascontiguousarray(ch.ram_trace))
+        maps.append((ch.before, ch.after))
+        keep(ch)
+    return h.hexdigest(), maps
+
+
+def b1033_wrap_tape(proofs: list, dev, smi: str):
+    """b1033 batch 0's segments verified in one NativeTape at the
+    standard config, its statement hashed into 4 public inputs
+    (`sponge_hash`); the public inputs must equal the host `hash_no_pad`
+    of segment 0's and the statement's cells b1033's public values.
+    Returns the tape."""
+    kernel = combined_kernel()
+    std = StarkConfig.standard_fast_config()
+    t = vm.Tape(npub=4)
+    if not isinstance(t, vm.NativeTape):
+        raise AssertionError(f"Tape() gave {type(t).__name__}")
+    t0 = time.perf_counter()
+    cells, _, _ = agg.wrap_segment_chain(t, proofs, kernel, std, device=dev)
+    for k, c in enumerate(sponge_hash(t, cells)):
+        t.bind_public(c, k)
+    build_s = time.perf_counter() - t0
+    want = host_poseidon.hash_no_pad([int(v)
+                                      for v in proofs[0].public_inputs])
+    if t.public_inputs != want:
+        raise AssertionError("b1033 wrap statement digest != host "
+                             "hash_no_pad of segment 0's public inputs")
+    value = [t.value(c) for c in cells]
+    pv = proofs[0].public_values
+    md = pv.block_metadata
+    if (value[agg.MD_NUMBER] != md.block_number
+            or md.block_number != B1033_BLOCK
+            or value[agg.MD_CHAIN_ID] != md.block_chain_id
+            or value[agg.TRA:agg.TRA + 8] != pvm_h256(
+                pv.trie_roots_after.state_root)):
+        raise AssertionError("b1033 wrap cells != its public values")
+    log(f"b1033 wrap tape: {len(proofs)} standard-config segments, "
+        f"{len(t.rows)} ops built in {build_s:.2f} s (host; the kernel's "
+        f"memory cap on the card) [{smi}]; public inputs == host "
+        f"hash_no_pad of segment 0's; block number {md.block_number}, "
+        f"chain id {md.block_chain_id} and new state root == its public "
+        f"values")
+    if len(t.rows) != B1033_WRAP_OPS:
+        raise AssertionError(f"b1033 wrap tape of {len(t.rows)} ops != "
+                             f"{B1033_WRAP_OPS}")
+    return t
+
+
+def check_chunk_maps(maps: list) -> None:
+    """Chunk k's exports are chunk k+1's imports; the first chunk imports
+    nothing and the last exports nothing."""
+    if maps[0][0] != {} or maps[-1][1] != {}:
+        raise AssertionError("the first chunk imports or the last exports")
+    for k, ((_, after), (before, _)) in enumerate(zip(maps, maps[1:])):
+        if after != before:
+            raise AssertionError(f"chunk {k}'s exports != chunk {k + 1}'s "
+                                 f"imports")
+
+
+def phase_b1033_wrap(dev, smi: str) -> dict:
+    """The JAX package's standard-config proof of mainnet block 1033,
+    batch 0 (two segments, all nine tables) verified in one tape, split
+    into its B1033_WRAP_CHUNKS chunks of 2^WRAP_CHUNK_LOG ops, every
+    chunk hashed (B1033_WRAP_TAPE_SHA256) and its boundary maps chained,
+    and B1033_PROVED_CHUNKS of them proved at the standard config and
+    verified: a cut in depth. The split and the hash run on a thread
+    beside the proofs. A changed chunk opening, a child with
+    block_gas_used + 1 and one with a changed proof-of-work witness are
+    rejected. Returns the dense kernels' launches on the path."""
+    t_phase = time.perf_counter()
+    proofs = b1033_segments()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = b1033_wrap_tape(proofs, dev, smi)
+    std = StarkConfig.standard_fast_config()
+    pub = [int(v) for v in t.public_inputs]
+    ready = queue.Queue()
+
+    def keep(ch) -> None:
+        if ch.index in B1033_PROVED_CHUNKS:
+            ready.put(ch)
+
+    def split_and_hash() -> tuple:
+        t0 = time.perf_counter()
+        try:
+            out = chunks_sha256(iter_split_tape(t, WRAP_CHUNK_LOG), keep)
+        finally:
+            ready.put(None)
+        return out + (time.perf_counter() - t0,)
+
+    proven = {}
+    tree = TimingTree("prove b1033 chunks")
+    with ThreadPoolExecutor(1) as pool:
+        split = pool.submit(split_and_hash)
+        with tree:
+            while (ch := ready.get()) is not None:
+                with tree.scope(f"prove chunk {ch.index}"):
+                    proven[ch.index] = (ch, prove_chunk(ch, pub, std,
+                                                        device=dev))
+        digest, maps, split_s = split.result()
+    launches = read_counts()
+    for name in ("poseidon_permute", "poseidon_sponge"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel never launched in path 12")
+    if len(maps) != B1033_WRAP_CHUNKS \
+            or sorted(proven) != sorted(B1033_PROVED_CHUNKS):
+        raise AssertionError(f"{len(maps)} chunks, proved {sorted(proven)}")
+    log(f"b1033 wrap chunks: {len(maps)} chunks of 2^{WRAP_CHUNK_LOG} ops "
+        f"split and hashed in {split_s:.2f} s on a thread beside the "
+        f"proofs; sha256 {digest}")
+    if digest != B1033_WRAP_TAPE_SHA256:
+        raise AssertionError(f"b1033 wrap chunks' sha256 != the JAX "
+                             f"package's {B1033_WRAP_TAPE_SHA256}")
+    check_chunk_maps(maps)
+    log(f"b1033 wrap: chunks {sorted(proven)} of {len(maps)} proved at the "
+        f"standard config (a cut in depth: `chip_smoke.py b1033-wrap` "
+        f"proves all {len(maps)}) [{smi}]:")
+    log_prove_tree(tree, launches)
+    log("  chunks: " + "; ".join(
+        f"{k}: Rvm {ch.rvm_trace.shape}, RvmMem {ch.ram_trace.shape}, "
+        f"Poseidon {len(ch.pose_ops)}, imports {len(ch.before)}, exports "
+        f"{len(ch.after)}" for k, (ch, _) in sorted(proven.items())))
+
+    t0 = time.perf_counter()
+    for ch, (starks, proof) in proven.values():
+        verify_chunk(ch, starks, proof, std, expected_public_inputs=pub,
+                     device=dev)
+    verify_s = time.perf_counter() - t0
+    caps = [[list(map(int, d)) for d in proven[k][1][1].proofs[i].trace_cap]
+            for k, i in ((0, AFTER_T), (1, BEFORE_T))]
+    if caps[0] != caps[1]:
+        raise AssertionError("chunk 0's MemAfter cap != chunk 1's "
+                             "MemBefore cap")
+    ch, (starks, proof) = proven[0]
+    bad_open = expect_rejection(
+        "a b1033 wrap chunk with a changed FRI opening",
+        lambda: verify_chunk(ch, starks, tampered_opening(proof), std,
+                             device=dev), "Merkle")
+    kernel = combined_kernel()
+    bad = {what: expect_rejection(
+        f"a b1033 wrap of a child with {what}",
+        lambda: agg.wrap_segment_chain(
+            vm.Tape(npub=4), [tamper(proofs[0])] + proofs[1:], kernel, std,
+            device=dev), match)
+        for what, tamper, match in (
+            ("block_gas_used + 1", tampered_child, "tape assert_eq"),
+            ("a changed pow_witness", tampered_pow, "exceeds"))}
+    log(f"b1033 wrap: {len(proven)} chunks verified in {verify_s:.2f} s "
+        f"(host) against hash_no_pad of segment 0's public inputs; chunk "
+        f"0's MemAfter cap == chunk 1's MemBefore cap; chunk maps chained; "
+        f"a changed FRI opening rejected in {bad_open:.2f} s; "
+        + "; ".join(f"a child with {what} failed while its tape was built "
+                    f"in {s:.2f} s" for what, s in bad.items())
+        + f"; the path {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def b1033_full_wrap() -> None:
+    """`python3 chip_smoke.py b1033-wrap`: path 12 without its cut in
+    depth. The whole b1033 wrap tape proved by `prove_chunked` at the
+    standard config, every chunk, and `verify_chunked` against hash_no_pad
+    of segment 0's public inputs; logs the timing tree, the stages
+    summed over the chunks, the peak and the launches."""
+    smi = phase_environment()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_run = time.perf_counter()
+    phase_build()
+    native.build()
+    proofs = b1033_segments()
+    t = b1033_wrap_tape(proofs, dev, smi)
+    std = StarkConfig.standard_fast_config()
+    chunks, proven, pub, launches = prove_wrap_tape(t, std, dev,
+                                                    "b1033 wrap", smi)
+    if len(chunks) != B1033_WRAP_CHUNKS:
+        raise AssertionError(f"{len(chunks)} chunks")
+    check_chunk_maps([(ch.before, ch.after) for ch in chunks])
+    t0 = time.perf_counter()
+    verify_chunked(chunks, proven, std, expected_public_inputs=pub,
+                   device=dev)
+    log(f"b1033 wrap: verify_chunked accepts all {len(chunks)} chunks in "
+        f"{time.perf_counter() - t0:.2f} s (host), public inputs == "
+        f"hash_no_pad of segment 0's; the run "
+        f"{time.perf_counter() - t_run:.2f} s")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 # the shape each kernel's row of the kernels line reports: the PoW grind
@@ -2380,12 +2645,14 @@ def main() -> None:
     mesh_launches = clock_of("mesh", phase_mesh, rng, dev, smi,
                              chain_launches, chain_sha, chain_stages)
     assembled_launches = clock_of("assembled", phase_assembled, dev, smi)
+    b1033_launches = clock_of("b1033 wrap", phase_b1033_wrap, dev, smi)
     log(clock_of.summary())
     log(f"dense launches: simple-transfer block {block_launches}, chain "
         f"wrap {wrap_launches}, block wrap {block_wrap_launches}, "
         f"two-to-one {two_to_one_launches}, witness chain "
         f"{witness_launches}, service {service_launches}, assembled "
-        f"loop's CPU table {assembled_launches}")
+        f"loop's CPU table {assembled_launches}, b1033 wrap (chunks "
+        f"{list(B1033_PROVED_CHUNKS)}) {b1033_launches}")
     log(f"keccak launches: memory chain under hasher keccak "
         f"{keccak_launches}")
     log(f"path 10 (one proof over several devices) launches: "
@@ -2415,4 +2682,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["b1033-wrap"]:
+        b1033_full_wrap()
+    elif sys.argv[1:]:
+        raise SystemExit("usage: python3 chip_smoke.py [b1033-wrap]")
+    else:
+        main()

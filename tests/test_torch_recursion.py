@@ -385,8 +385,11 @@ def test_split_tape_equals_jax_and_balances(tape_cls):
 def test_prove_chunked_roundtrip():
     """A tape split into 16-op chunks proves as 5-table systems chained by
     their boundary tables' caps; verify_chunked accepts it and rejects
-    wrong public inputs, and one tape verifying the whole chunk chain
+    wrong public inputs; each chunk verifies alone (`verify_chunk`, as
+    chip_smoke.py's path 12 checks the chunks it proves) and fails with
+    one FRI opening changed; and one tape verifying the whole chunk chain
     (wrap_chunked_tape) exposes the same public inputs."""
+    import chip_smoke
     cfg = _cfg(OUTER_KW)
     t = _sample_tape(vm.Tape)
     chunks, proven, pub = ct.prove_chunked(t, cfg, 4, device="cpu")
@@ -397,6 +400,12 @@ def test_prove_chunked_roundtrip():
         ct.verify_chunked(chunks, proven, cfg,
                           expected_public_inputs=[pub[0], pub[1] + 1],
                           device="cpu")
+    for ch, (starks, proof) in zip(chunks, proven):
+        ct.verify_chunk(ch, starks, proof, cfg, expected_public_inputs=pub,
+                        device="cpu")
+        with pytest.raises(AssertionError, match="Merkle"):
+            ct.verify_chunk(ch, starks, chip_smoke.tampered_opening(proof),
+                            cfg, device="cpu")
     w = vm.Tape(npub=2)
     cells = ct.wrap_chunked_tape(w, chunks, proven, cfg, device="cpu")
     assert [w.value(c) for c in cells] == pub
@@ -584,13 +593,14 @@ def test_fib_wrap_constant_is_jax():
 
 # ---- simple-transfer's segment chain --------------------------------------
 
-def _simple_transfer_segments():
+def _simple_transfer_segments(max_cpu_len_log: int = 14):
     from zk_evm_tpu_torch.witness.kernel import combined_kernel
     from zk_evm_tpu_torch.witness.segments import generate_segment_tables
     from zk_evm_tpu_torch.witness.testing_fixtures import FIXTURES
     kernel = combined_kernel()
     return kernel, [gt for _, gt in generate_segment_tables(
-        kernel, FIXTURES["simple-transfer"](), max_cpu_len_log=14)]
+        kernel, FIXTURES["simple-transfer"](),
+        max_cpu_len_log=max_cpu_len_log)]
 
 
 def test_fixture_statement_is_not_a_checkpoint_block():
@@ -618,10 +628,11 @@ def test_fixture_statement_is_not_a_checkpoint_block():
 
 @pytest.mark.slow
 def test_chain_wrap_tape_equals_jax():
-    """simple-transfer's chain (test config, max_cpu_len_log 14) proved by
-    the port on the CPU, then wrapped by both packages from the same
-    proofs (the JAX package reads the port's JSON): the tapes' Rvm and
-    RAM traces hash alike, to chip_smoke.py's WRAP_TAPE_SHA256."""
+    """simple-transfer's chain (test config, chip_smoke.py's
+    max_cpu_len_log WRAP_SEGMENT_LOG: two segments) proved by the port on
+    the CPU, then wrapped by both packages from the same proofs (the JAX
+    package reads the port's JSON): the tapes' Rvm and RAM traces hash
+    alike, to chip_smoke.py's WRAP_TAPE_SHA256."""
     import chip_smoke
     from zk_evm_tpu.recursion.tape_lib import sponge_hash as jsponge_hash
     from zk_evm_tpu.stark.serialization import (
@@ -631,7 +642,8 @@ def test_chain_wrap_tape_equals_jax():
         BlockProof, batch_public_values)
     from zk_evm_tpu_torch.orchestration.block import prove_block
     from zk_evm_tpu_torch.stark.serialization import block_proof_to_json
-    kernel, segments = _simple_transfer_segments()
+    kernel, segments = _simple_transfer_segments(
+        chip_smoke.WRAP_SEGMENT_LOG)
     cfg = StarkConfig.test_config()
     proofs = [prove_block(gt, cfg, device="cpu") for gt in segments]
     jproofs = jblock_proof_from_json(block_proof_to_json(BlockProof(

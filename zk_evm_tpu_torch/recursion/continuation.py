@@ -25,6 +25,7 @@ from ..stark import Stark, Filter, ColExpr, col
 from ..stark.lookup import CrossTableLookup, CtlView
 from . import ram, vm
 from ..tables import poseidon as ps
+from ..timing import timed
 
 # -- boundary table (FILTER, ADDR, VALUE) -------------------------------------
 
@@ -135,8 +136,16 @@ class TapeChunk:
 def split_tape(tape, rows_log: int) -> list[TapeChunk]:
     """Slice a finalized-able tape into 2^rows_log-op chunks with exact
     single-assignment liveness at every boundary."""
+    return list(iter_split_tape(tape, rows_log))
+
+
+def iter_split_tape(tape, rows_log: int):
+    """`split_tape` one chunk at a time, in order: a caller that keeps
+    only some chunks (or only a digest of their traces) never holds
+    every chunk's traces at once."""
     if isinstance(tape, vm.NativeTape):
-        return _split_tape_native(tape, rows_log)
+        yield from _split_tape_native(tape, rows_log)
+        return
     from ..tables.poseidon import PoseidonSimpleOp
     assert all(v is not None for v in tape.public_inputs), \
         "unbound public inputs"
@@ -158,7 +167,6 @@ def split_tape(tape, rows_log: int) -> list[TapeChunk]:
         else:
             write_clk[op.addr] = clk
 
-    chunks = []
     for k in range(n_chunks):
         lo, hi = k * C, min((k + 1) * C, n_ops)
         rows = tape.rows[lo:hi]
@@ -185,15 +193,12 @@ def split_tape(tape, rows_log: int) -> list[TapeChunk]:
         pose_ops = [PoseidonSimpleOp(tuple(
             int(r[lay["PIN"][i]]) for i in range(12)))
             for r in pose_inputs]
-        chunks.append(TapeChunk(index=k, clk_base=lo, stark=stark,
-                                rvm_trace=trace, ram_trace=ram_trace,
-                                pose_ops=pose_ops, before=before,
-                                after=after))
-    return chunks
+        yield TapeChunk(index=k, clk_base=lo, stark=stark,
+                        rvm_trace=trace, ram_trace=ram_trace,
+                        pose_ops=pose_ops, before=before, after=after)
 
 
-def _split_tape_native(tape: "vm.NativeTape",
-                       rows_log: int) -> list[TapeChunk]:
+def _split_tape_native(tape: "vm.NativeTape", rows_log: int):
     """NativeTape fast path: traces, liveness and RAM traces come out of
     the C++ core as finished arrays (same chunk semantics as the python
     path; equality asserted in tests/test_tapecore.py)."""
@@ -205,7 +210,6 @@ def _split_tape_native(tape: "vm.NativeTape",
     n_chunks = (n_ops + C - 1) // C
     if n_chunks <= 1:
         raise ValueError("tape fits one chunk; use Tape.finalize")
-    chunks = []
     for k in range(n_chunks):
         lo, hi = k * C, min((k + 1) * C, n_ops)
         trace = tape.export_trace(lo, hi, C)
@@ -215,37 +219,43 @@ def _split_tape_native(tape: "vm.NativeTape",
         a_addrs, a_vals = tape.live_at(hi)
         ram_trace = tape.ram_trace(lo, hi, before_addrs=b_addrs,
                                    export_addrs=a_addrs)
-        chunks.append(TapeChunk(
+        yield TapeChunk(
             index=k, clk_base=lo, stark=stark, rvm_trace=trace,
             ram_trace=ram_trace, pose_ops=tape.export_pose_ops(lo, hi),
             before={int(a): int(v) for a, v in zip(b_addrs, b_vals)},
-            after={int(a): int(v) for a, v in zip(a_addrs, a_vals)}))
-    return chunks
+            after={int(a): int(v) for a, v in zip(a_addrs, a_vals)})
 
 
 def prove_chunked(tape, config, rows_log: int, device=None):
     """Prove every chunk as its own 5-table system, on `device` (CUDA
     when not given). Returns (chunks, [(starks, AllProof)],
     public_inputs)."""
-    from ..stark import prove_all
-    chunks = split_tape(tape, rows_log)
+    with timed("split tape"):
+        chunks = split_tape(tape, rows_log)
     pub = [int(v) for v in tape.public_inputs]
     out = []
     for ch in chunks:
-        starks = [ch.stark, ram.RvmMemStark(), ps.PoseidonStark(),
-                  RvmBoundaryStark("rvm_mem_before"),
-                  RvmBoundaryStark("rvm_mem_after")]
-        traces = [ch.rvm_trace, ch.ram_trace,
-                  ps.generate_trace(ch.pose_ops) if ch.pose_ops else None,
-                  boundary_trace(ch.before) if ch.before else None,
-                  boundary_trace(ch.after) if ch.after else None]
-        ctls = chunk_ctls(tape.npub, ch.clk_base)
-        proof = prove_all(starks, traces, ctls, config,
-                          public_inputs=pub,
-                          table_public_inputs={RVM_T: pub},
-                          device=device)
-        out.append((starks, proof))
+        with timed(f"prove chunk {ch.index}"):
+            out.append(prove_chunk(ch, pub, config, device=device))
     return chunks, out, pub
+
+
+def prove_chunk(ch: TapeChunk, pub: list, config, device=None):
+    """One chunk of `prove_chunked`: its 5-table system proved on
+    `device` (CUDA when not given) with the tape's public inputs `pub`.
+    Returns (starks, AllProof)."""
+    from ..stark import prove_all
+    starks = [ch.stark, ram.RvmMemStark(), ps.PoseidonStark(),
+              RvmBoundaryStark("rvm_mem_before"),
+              RvmBoundaryStark("rvm_mem_after")]
+    traces = [ch.rvm_trace, ch.ram_trace,
+              ps.generate_trace(ch.pose_ops) if ch.pose_ops else None,
+              boundary_trace(ch.before) if ch.before else None,
+              boundary_trace(ch.after) if ch.after else None]
+    proof = prove_all(starks, traces, chunk_ctls(ch.stark.npub, ch.clk_base),
+                      config, public_inputs=pub,
+                      table_public_inputs={RVM_T: pub}, device=device)
+    return starks, proof
 
 
 def wrap_chunked_tape(t, chunks, proven, config, device=None):
@@ -291,20 +301,10 @@ def verify_chunked(chunks, proven, config,
     EVM's cap-chaining contract, orchestration/block.py
     check_segment_pair). The chunks' program caps are committed on
     `device` (CUDA when not given)."""
-    from ..stark import verify_all
     assert len(chunks) == len(proven)
     for ch, (starks, proof) in zip(chunks, proven):
-        if expected_public_inputs is not None:
-            assert list(proof.public_inputs) == \
-                list(expected_public_inputs), "public inputs mismatch"
-        assert list(proof.proofs[RVM_T].public_inputs) == \
-            list(proof.public_inputs), "Rvm public input link mismatch"
-        optional = tuple(
-            i for i in (POSEIDON_T, BEFORE_T, AFTER_T)
-            if proof.proofs[i] is None)
-        verify_all(starks, proof, chunk_ctls(starks[RVM_T].npub,
-                                             ch.clk_base),
-                   config, optional_tables=optional, device=device)
+        verify_chunk(ch, starks, proof, config, expected_public_inputs,
+                     device=device)
     assert chunks[0].before == {}, "first chunk must import nothing"
     assert chunks[-1].after == {}, "last chunk must export nothing"
     for (ca, (_, pa)), (cb, (_, pb)) in zip(zip(chunks, proven),
@@ -319,3 +319,20 @@ def verify_chunked(chunks, proven, config,
         assert [list(map(int, d)) for d in ma.trace_cap] == \
             [list(map(int, d)) for d in mb.trace_cap], \
             "MemAfter -> MemBefore boundary cap chain broken"
+
+
+def verify_chunk(ch: TapeChunk, starks, proof, config,
+                 expected_public_inputs=None, device=None) -> None:
+    """One chunk of `verify_chunked`: its proof and its Rvm's public-input
+    link, without the boundary-cap chain to its neighbours."""
+    from ..stark import verify_all
+    if expected_public_inputs is not None:
+        assert list(proof.public_inputs) == \
+            list(expected_public_inputs), "public inputs mismatch"
+    assert list(proof.proofs[RVM_T].public_inputs) == \
+        list(proof.public_inputs), "Rvm public input link mismatch"
+    optional = tuple(
+        i for i in (POSEIDON_T, BEFORE_T, AFTER_T)
+        if proof.proofs[i] is None)
+    verify_all(starks, proof, chunk_ctls(starks[RVM_T].npub, ch.clk_base),
+               config, optional_tables=optional, device=device)
